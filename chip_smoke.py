@@ -8,12 +8,22 @@ Run from the checkout root:
 Phases, each printing its own lines:
   1. environment: the card as nvidia-smi names it, and the kernel build;
   2. every kernel of the sort path against its plain PyTorch version on the
-     card, at the shapes the path gives it, bit for bit, with times from
-     CUDA events (median of a few runs);
-  3. the sort path end to end through the public API: 2^25 uniform u64
-     keys, a 10,000,000-pair stable u32 key-value sort (a length that takes
-     the piece path) and 2^22 f64 keys with +-NaN, +-0 and +-Inf, each
-     bit-equal to numpy, with every kernel's launch count from that run;
+     card, at the shapes the paths give it, bit for bit, with times from
+     CUDA events (median of a few runs): B1-B3, and the merge kernels B4/B5
+     at the chunked path's merge shape (2^25 x 4 planes) and others;
+  3. the paths end to end through the public API, each driven with every
+     launch count set to 0 just before it and read just after, each sorted
+     bit-equal to numpy or to torch.sort, each printing its plan trace, time
+     and rate:
+       - 2^25 uniform u64 keys, a 10,000,000-pair stable u32 key-value sort
+         (the piece path) and 2^22 f64 keys with +-NaN, +-0 and +-Inf;
+       - the low-memory Regions path at the real gate: 2^30 int64 keys with
+         int32 values on the card (12 GiB of planes, above the 10 GiB
+         ``low_mem_threshold_bytes``), with its peak device memory;
+       - 20M u64 keys with the low-memory tuner and the gate forced open;
+       - a presorted merge of 2^25 u64 keys whose first 15/16 are sorted;
+       - the bucketed MtOop plan on 16M u32 key-value pairs, uniform and
+         with one key holding half the rows;
   4. one JSON line of the kernels, then the result line.
 
 Exits non-zero, printing no result, when CUDA is absent, when the package is
@@ -21,6 +31,8 @@ not importable, or when any check fails.  Needs one card; uses no JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
@@ -40,7 +52,12 @@ KERNEL_INFO = {
         "rdst_tpu_torch/csrc/bitonic.cu", "rdst_tpu/ops/pallas_sort.py:267"),
     "bitonic_span": (
         "rdst_tpu_torch/csrc/bitonic.cu", "rdst_tpu/ops/pallas_sort.py:327"),
+    "merge_stage": (
+        "rdst_tpu_torch/csrc/merge.cu", "rdst_tpu/ops/pallas_merge.py:208"),
+    "merge_tail": (
+        "rdst_tpu_torch/csrc/merge.cu", "rdst_tpu/ops/pallas_merge.py:232"),
 }
+GiB = 1 << 30
 
 
 def cuda_ms(torch, fn) -> float:
@@ -58,6 +75,20 @@ def cuda_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
+def plain_route(fm, fn):
+    """Run ``fn`` with the merge wrappers routed to their plain versions:
+    the same stage schedule on the same card, for a composite's check."""
+    saved = fm.merge_stage_call, fm.merge_tail_call
+    fm.merge_stage_call = lambda pl, n, s, k, in_place=False: \
+        fm.merge_stage_plain(list(pl), n, s, k)
+    fm.merge_tail_call = lambda pl, n, b, k, in_place=False: \
+        fm.merge_tail_plain(list(pl), n, b, k)
+    try:
+        return fn()
+    finally:
+        fm.merge_stage_call, fm.merge_tail_call = saved
+
+
 def main() -> int:
     import torch
 
@@ -69,6 +100,7 @@ def main() -> int:
         from rdst_tpu_torch import _build
         from rdst_tpu_torch import _planes as P
         from rdst_tpu_torch import config
+        from rdst_tpu_torch.ops import fused_merge as fm
         from rdst_tpu_torch.ops import fused_sort as fs
         from rdst_tpu_torch.ops import histogram as H
     except ImportError as e:
@@ -123,21 +155,24 @@ def main() -> int:
     results = {name: {"max_abs_err": 0} for name in KERNEL_INFO}
 
     def check(name, label, kernel_fn, plain_fn, main_shape=False):
+        """``name``: a kernel, or a tuple of the kernels a composite runs."""
         got = kernel_fn()
         torch.cuda.synchronize()
         want = plain_fn()
         err = max_err(got, want)
         ms = cuda_ms(torch, kernel_fn)
         plain_ms = cuda_ms(torch, plain_fn)
-        print(f"{name} [{label}]: max_abs_err={err} kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+        names = name if isinstance(name, tuple) else (name,)
+        print(f"{'+'.join(names)} [{label}]: max_abs_err={err} kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
         if err != 0:
             raise AssertionError(f"{name} [{label}] disagrees with its plain "
                                  f"version (max_abs_err {err})")
-        r = results[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if main_shape:
-            r["ms"], r["plain_ms"] = ms, plain_ms
+        for nm in names:
+            r = results[nm]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if main_shape:
+                r["ms"], r["plain_ms"] = ms, plain_ms
         return got
 
     n = 1 << 25
@@ -215,8 +250,84 @@ def main() -> int:
                                 blk8, 3))
     del w, ws, we, wr, narrow, eight, packed
 
-    # -- 3. the sort path end to end -------------------------------------------
+    # B4/B5 at the chunked path's merge shape: two u64 key words, the
+    # stable tiebreak plane and a u32 rider; then narrow planes, a float32
+    # rider (its bits), eight planes, and merge_level (many pairs per pass)
+    z4 = planes_u32(n, 2, 1 << 20) + [P.arange(n, torch.uint32, dev)] + \
+        planes_u32(n, 1)
+    blk4 = fm.pick_block(4)
+    for s_ in (1 << 24, 1 << 13):
+        check("merge_stage", f"2^25 x 4, stride 2^{s_.bit_length() - 1}",
+              lambda: fm.merge_stage_cuda(z4, n, s_, 3),
+              lambda: fm.merge_stage_plain(z4, n, s_, 3),
+              main_shape=s_ == 1 << 24)
+    check("merge_tail", f"2^25 x 4, block {blk4}",
+          lambda: fm.merge_tail_cuda(z4, n, blk4, 3),
+          lambda: fm.merge_tail_plain(z4, n, blk4, 3), main_shape=True)
+    del z4
+    m24 = 1 << 24
+    narrow = planes_of(m24, [torch.uint16, torch.uint32, torch.uint8], 7)
+    blk3 = fm.pick_block(3)
+    check("merge_stage", "2^24 u16+u32 keys, u8 rider, stride 2^20",
+          lambda: fm.merge_stage_cuda(narrow, m24, 1 << 20, 2),
+          lambda: fm.merge_stage_plain(narrow, m24, 1 << 20, 2))
+    check("merge_tail", f"2^24 u16+u32 keys, u8 rider, block {blk3}",
+          lambda: fm.merge_tail_cuda(narrow, m24, blk3, 2),
+          lambda: fm.merge_tail_plain(narrow, m24, blk3, 2))
+    f32 = [planes_u32(m24, 1, 1000)[0],
+           torch.randn(m24, generator=gen, device=dev).view(torch.uint32)]
+    check("merge_stage", "2^24 u32 key, float32 rider, stride 2^16",
+          lambda: fm.merge_stage_cuda(f32, m24, 1 << 16, 1),
+          lambda: fm.merge_stage_plain(f32, m24, 1 << 16, 1))
+    check("merge_tail", "2^24 u32 key, float32 rider",
+          lambda: fm.merge_tail_cuda(f32, m24, fm.pick_block(2), 1),
+          lambda: fm.merge_tail_plain(f32, m24, fm.pick_block(2), 1))
+    eight = planes_of(1 << 22, [torch.uint32] * 8, 5)
+    blk8 = fm.pick_block(8)
+    check("merge_stage", "2^22 x 8 planes, stride 2^21",
+          lambda: fm.merge_stage_cuda(eight, 1 << 22, 1 << 21, 3),
+          lambda: fm.merge_stage_plain(eight, 1 << 22, 1 << 21, 3))
+    check("merge_tail", f"2^22 x 8 planes, block {blk8}",
+          lambda: fm.merge_tail_cuda(eight, 1 << 22, blk8, 3),
+          lambda: fm.merge_tail_plain(eight, 1 << 22, blk8, 3))
+    del narrow, f32, eight
+    # 32 sorted runs of 2^20: 16 pairs merge in every launch
+    runs = torch.randint(0, 1 << 30, (n,), generator=gen, device=dev)
+    runs = torch.sort(runs.view(-1, 1 << 20), dim=1).values.reshape(-1)
+    lvl = [P.narrow(runs, torch.uint32), planes_u32(n, 1)[0]]
+    del runs
+    check(("merge_stage", "merge_tail"), "merge_level 2^25 x 2, runs of 2^20",
+          lambda: fm.merge_level(lvl, 1 << 20, 1),
+          lambda: plain_route(fm, lambda: fm.merge_level(lvl, 1 << 20, 1)))
+    del lvl
+    torch.cuda.empty_cache()
+
+    # -- 3. the paths end to end ---------------------------------------------
     rng = np.random.default_rng(SEED)
+    launches = {name: 0 for name in KERNEL_INFO}
+
+    def drive(label, n_keys, fn, merges=False):
+        """Run one path with every launch count set to 0 just before it and
+        read just after; print its plan trace, time and rate."""
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        trace = io.StringIO()
+        with config.work_profiles(True), contextlib.redirect_stdout(trace):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        counts = {name: _build.KERNELS[name].launches for name in KERNEL_INFO}
+        for name, c in counts.items():
+            launches[name] += c
+        plans = " | ".join(trace.getvalue().strip().splitlines())
+        print(f"path {label}: {dt:.4f} s, {n_keys / dt:,.0f} keys/s; "
+              f"plan: {plans}; launches {counts}")
+        if merges and not (counts["merge_stage"] > 0 and counts["merge_tail"] > 0):
+            raise AssertionError(f"path {label} merged without B4 and B5")
+        return out, plans
+
     x64 = rng.integers(0, 2**64, size=1 << 25, dtype=np.uint64)
     k32 = rng.integers(0, 2**32, size=10_000_000, dtype=np.uint32)
     v32 = rng.integers(0, 2**32, size=10_000_000, dtype=np.uint32)
@@ -228,27 +339,15 @@ def main() -> int:
     f64_bits[at[:500]] |= np.uint64(0x3)  # NaN payload bits stay exact
     f64 = f64_bits.view(np.float64)
 
-    for k in _build.KERNELS.values():
-        k.launches = 0
-    timings = {}
-
-    def timed(label, n_keys, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        timings[label] = (dt, n_keys / dt)
-        return out
-
-    with config.work_profiles(True):  # prints each "(level) PLAN:" pick
-        y64 = timed("u64 2^25", x64.size, lambda: rt.radix_sort_unstable(x64))
-        ks, vs = timed("u32 key-value 10M stable", k32.size,
-                       lambda: rt.sort_key_value(k32, v32, stable=True))
-        yf = timed("f64 2^22 specials", f64.size,
-                   lambda: rt.radix_sort_unstable(f64))
-    launches = {name: _build.KERNELS[name].launches for name in KERNEL_INFO}
-
+    y64, _ = drive("u64 2^25 (numpy in and out)", x64.size,
+                   lambda: rt.radix_sort_unstable(x64))
+    (ks, vs), _ = drive("u32 key-value 10M stable", k32.size,
+                        lambda: rt.sort_key_value(k32, v32, stable=True))
+    yf, _ = drive("f64 2^22 specials", f64.size,
+                  lambda: rt.radix_sort_unstable(f64))
+    for name in ("multi_level_histogram", "bitonic_tail", "bitonic_span"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the sort path")
     if not np.array_equal(y64, np.sort(x64)):
         raise AssertionError("u64 2^25 sort differs from np.sort")
     order = np.argsort(k32, kind="stable")
@@ -259,16 +358,91 @@ def main() -> int:
     want = f64[np.argsort(folded, kind="stable")]
     if not np.array_equal(yf.view(np.uint64), want.view(np.uint64)):
         raise AssertionError("f64 sort differs from the total-order oracle")
-    for label, (dt, rate) in timings.items():
-        print(f"sort {label}: bit-exact vs numpy, {dt:.4f} s, {rate:,.0f} keys/s "
-              f"(host clock, numpy in and out)")
+    print("sorts u64 2^25, u32 key-value 10M, f64 2^22: bit-exact vs numpy")
     dt = cuda_ms(torch, lambda: rt.radix_sort_unstable(x64))
     print(f"sort u64 2^25 warm: {dt:.2f} ms, {x64.size / dt * 1e3:,.0f} keys/s "
           f"(median of {REPS}, numpy in and out)")
-    print(f"launches on the sort path: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} never launched on the sort path")
+    del y64, ks, vs, yf, k32, v32, f64, order, folded, want, u
+
+    # the low-memory Regions path at the real gate: 2^30 int64 keys (39 bits
+    # of entropy, so ~2^20 ties; the low bit set as the sign bit, so both
+    # signs) and int32 values, made on the card
+    n30 = 1 << 30
+    keys = torch.empty(n30, dtype=torch.int64, device=dev).random_(generator=gen)
+    keys >>= 24
+    keys ^= keys << 63
+    vals = torch.empty(n30, dtype=torch.int32, device=dev).random_(generator=gen)
+    planes_gib = n30 * 12 / GiB
+    print(f"regions 2^30: {planes_gib:.1f} GiB of planes, gate "
+          f"{config.low_mem_threshold_bytes / GiB:.1f} GiB")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (ok_, (ov,)), plans = drive(
+        "regions 2^30 int64 + int32, low-mem tuner, stable", n30,
+        lambda: rt.radix_sort_builder(keys, [vals]).with_low_mem_tuner()
+        .with_stable().sort(), merges=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"regions 2^30 peak device memory: {peak} B ({peak / GiB:.2f} GiB), "
+          f"of which inputs {base} B ({base / GiB:.2f} GiB) held by the caller")
+    if "PLAN: Regions" not in plans:
+        raise AssertionError("the 2^30 low-memory sort did not pick Regions")
+    ref_keys, ref_idx = torch.sort(keys, stable=True)
+    if not torch.equal(ok_, ref_keys):
+        raise AssertionError("regions 2^30 keys differ from torch.sort")
+    del ref_keys
+    if not torch.equal(ov, vals[ref_idx]):
+        raise AssertionError("regions 2^30 values differ from the stable order")
+    print("regions 2^30: bit-exact vs torch.sort(stable=True) and its gather")
+    del keys, vals, ok_, ov, ref_idx
+    torch.cuda.empty_cache()
+
+    # the JAX package's acceptance shape: 20M u64, the gate forced open
+    klm = rng.integers(0, 2**64, size=20_000_000, dtype=np.uint64)
+    old_gate = config.low_mem_threshold_bytes
+    config.low_mem_threshold_bytes = 1
+    try:
+        got, plans = drive(
+            "lowmem 20M u64, gate forced", klm.size,
+            lambda: rt.radix_sort_builder(klm).with_low_mem_tuner().sort(),
+            merges=True)
+    finally:
+        config.low_mem_threshold_bytes = old_gate
+    if "PLAN: Regions" not in plans or not np.array_equal(got, np.sort(klm)):
+        raise AssertionError("lowmem 20M u64 differs from np.sort")
+    print("lowmem 20M u64: bit-exact vs np.sort")
+    del klm, got
+
+    # a presorted merge: the first 15/16 sorted
+    xp = rng.integers(0, 2**64, size=1 << 25, dtype=np.uint64)
+    xp[: 15 * xp.size // 16] = np.sort(xp[: 15 * xp.size // 16])
+    got, plans = drive("presorted 2^25 u64, 15/16 sorted", xp.size,
+                       lambda: rt.radix_sort_unstable(xp), merges=True)
+    if "PresortedMerge[" not in plans or not np.array_equal(got, np.sort(xp)):
+        raise AssertionError("presorted 2^25 u64 differs from np.sort")
+    print("presorted 2^25 u64: bit-exact vs np.sort")
+    del xp, got
+
+    # the bucketed MtOop plan, uniform and with one key on half the rows
+    nb = 1 << 24
+    for hot in (False, True):
+        kb = rng.integers(0, 2**32, size=nb, dtype=np.uint32)
+        if hot:
+            kb[(kb >> 24) == 0x55] ^= np.uint32(1 << 24)  # top byte 0x55 pure
+            kb[: nb // 2] = np.uint32(0x5555AAAA)
+            rng.shuffle(kb)
+        vb = rng.integers(0, 2**32, size=nb, dtype=np.uint32)
+        (gk, (gv,)), plans = drive(
+            f"bucketed MtOop 16M u32 key-value{' hot key' if hot else ''}",
+            nb, lambda: rt.radix_sort_builder(kb, [vb])
+            .with_algorithm(rt.Algorithm.MT_OOP).with_stable().sort())
+        order = np.argsort(kb, kind="stable")
+        if not (np.array_equal(gk, kb[order]) and np.array_equal(gv, vb[order])):
+            raise AssertionError(f"bucketed (hot={hot}) differs from argsort")
+        if "BatchedRows[" not in plans or hot != ("SingleKeySkip" in plans):
+            raise AssertionError(f"bucketed (hot={hot}) plan: {plans}")
+        print(f"bucketed 16M (hot={hot}): bit-exact vs numpy stable argsort")
+    print(f"launches on the paths: {launches}")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

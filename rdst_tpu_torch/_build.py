@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
 The sources under ``csrc/`` compile at first use with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, written to
+``sm_90a`` (one ``nvcc`` per source, all started together) and link into
+one shared library with a plain C interface, written to
 ``build/rdst_tpu_torch/`` at the checkout root and named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
 at once.  The library loads through ctypes: every pointer and the stream
@@ -58,7 +59,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run(procs: list[subprocess.Popen]) -> None:
+    """Wait for every process; raise with the output of the first failure."""
+    failed = []
+    for proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(proc.args)}"
+                          f"\n{out}\n{err}")
+    if failed:
+        raise RuntimeError(failed[0])
+
+
 def _build() -> Path:
+    """Compile every source to an object file, all at once (one nvcc each),
+    then link them into the shared library."""
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     for f in sorted(_CSRC.glob("*.cu*")):
@@ -68,13 +83,22 @@ def _build() -> Path:
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    compile_flags = [f for f in _FLAGS if f != "-shared"]
+    objs = [_BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    _run([
+        subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(obj), str(src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for src, obj in zip(sources, objs)
+    ])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+    _run([subprocess.Popen([nvcc, *_FLAGS, "-o", str(tmp), *map(str, objs)],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

@@ -25,7 +25,7 @@ import torch
 __all__ = [
     "UNSIGNED", "unsigned_of_width", "all_ones", "sview", "widen", "narrow",
     "complement", "where", "take", "flip", "cat", "interleave", "full",
-    "arange", "lex_gt", "lex_sort",
+    "fill_like", "arange", "lex_gt", "lex_sort",
 ]
 
 _SIGNED = {
@@ -105,7 +105,19 @@ def full(n: int, value: int, dtype: torch.dtype, device) -> torch.Tensor:
     )
 
 
+def fill_like(n: int, value: int, like: torch.Tensor) -> torch.Tensor:
+    """(n,) plane of ``like``'s dtype and device: an unsigned plane holds
+    ``value``'s low bits (``-1`` is its all-ones), another dtype ``value``."""
+    if like.dtype in UNSIGNED:
+        return full(n, value & all_ones(like.dtype), like.dtype, like.device)
+    return torch.full((n,), value, dtype=like.dtype, device=like.device)
+
+
 def arange(n: int, dtype: torch.dtype = torch.uint32, device=None) -> torch.Tensor:
+    """0 .. n-1 as an unsigned plane (values wrap to the plane's width)."""
+    if dtype == torch.uint32 and n <= 1 << 31:
+        # no int64 temporary: a quarter of the memory at the largest sizes
+        return torch.arange(n, dtype=torch.int32, device=device).view(dtype)
     return narrow(torch.arange(n, dtype=torch.int64, device=device), dtype)
 
 

@@ -110,6 +110,10 @@ class RadixSortBuilder:
         out_nk, out_payload_words = sorter.run(
             nk, payload_words, stable=self._stable
         )
+        # let the input planes go before the inverse transform: at the
+        # largest sizes its temporaries are the call's peak device memory
+        decoders = [(len(words), decode) for words, decode in payload_info]
+        del nk, payload_words, payload_info
         if want_numpy:
             sorted_keys = _keys.denormalize_host(out_nk)
         else:
@@ -118,8 +122,7 @@ class RadixSortBuilder:
             return sorted_keys
         out_payloads = []
         i = 0
-        for words, decode in payload_info:
-            k = len(words)
+        for k, decode in decoders:
             out_payloads.append(decode(out_payload_words[i: i + k]))
             i += k
         if want_numpy:

@@ -41,12 +41,19 @@ bitonic_smem_bytes = (227 * 1024) // 2 - 1024
 presorted_merge_min = 1 << 17
 
 #: Working-set size (bytes, all operand planes) above which the Regions plan
-#: would engage its chunked low-memory path.  The JAX package engages at
-#: 2 GiB of a v5e's 16 GiB, i.e. when planes take 1/8 of device memory, since
-#: the dense sort needs several times its planes in workspace.  The same
-#: fraction of an H100's 80 GB is 10 GiB.  The chunked path itself is not
-#: ported yet (ROADMAP A6), so above this size a Regions pick raises.
+#: engages its chunked low-memory path (``sorts/regions.py``
+#: ``chunked_sort``).  The JAX package engages at 2 GiB of a v5e's 16 GiB,
+#: i.e. when planes take 1/8 of device memory, since the dense sort needs
+#: several times its planes in workspace.  The same fraction of an H100's
+#: 80 GB is 10 GiB.
 low_mem_threshold_bytes = 10 << 30
+
+#: Inputs longer than this skip the bucketed MSB plan (``sorts/msb.py``) for
+#: the comparative one.  In the JAX package it bounds XLA compile time of the
+#: padded-bucket graph; PyTorch compiles nothing, so here it only keeps the
+#: port's plan choices, and its ``(msb) FALLBACK`` trace, equal to the JAX
+#: package's.  Either plan gives the same sorted output.
+max_bucketed_elements = 20_000_000
 
 # work_profiles-equivalent: trace per-level algorithm picks
 # (reference: Cargo.toml:18, src/sorter.rs:78-79).

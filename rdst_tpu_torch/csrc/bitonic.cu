@@ -25,88 +25,24 @@
 //     never swap and all planes move together; a descending pair swaps when
 //     hi > lo, which is bit for bit the Pallas kernels' complement-around-an-
 //     ascending-stage (gt over complements is lt, ties included);
-//   - one thread per compare pair, __syncthreads() between stages.
+//   - one thread per compare pair, __syncthreads() between stages
+//     (the device helpers are in bitonic.cuh, which B5 shares).
 // Bound: each trip reads and writes every plane once (n * bytes per element
 // * 2); the stages in between run on shared memory.  The block is sized in
 // rdst_tpu_torch/config.py (bitonic_smem_bytes) so that two CTAs fit an SM;
 // span pieces stay at least 128 elements (one warp's worth of 16-byte loads
 // of u32) so the gathered loads coalesce.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bitonic.cuh"
 
 namespace {
 
-constexpr int kMaxPlanes = 8;
 constexpr int kMaxLevels = 32;
-constexpr int kThreads = 512;
-
-struct Planes {
-  const void* in[kMaxPlanes];
-  void* out[kMaxPlanes];
-  int width[kMaxPlanes];  // bytes: 1, 2 or 4
-  int n_planes;
-  int n_keys;
-};
 
 struct Levels {
   int log_2r[kMaxLevels];
   int start[kMaxLevels];
   int count;
 };
-
-__device__ __forceinline__ uint32_t load_plane(const void* p, int width,
-                                               long long i) {
-  if (width == 4) return static_cast<const uint32_t*>(p)[i];
-  if (width == 2) return static_cast<const uint16_t*>(p)[i];
-  return static_cast<const uint8_t*>(p)[i];
-}
-
-__device__ __forceinline__ void store_plane(void* p, int width, long long i,
-                                            uint32_t v) {
-  if (width == 4) {
-    static_cast<uint32_t*>(p)[i] = v;
-  } else if (width == 2) {
-    static_cast<uint16_t*>(p)[i] = static_cast<uint16_t>(v);
-  } else {
-    static_cast<uint8_t*>(p)[i] = static_cast<uint8_t>(v);
-  }
-}
-
-__device__ __forceinline__ uint32_t ones_of(int width) {
-  return width >= 4 ? 0xFFFFFFFFu : ((1u << (8 * width)) - 1u);
-}
-
-// sm holds n_planes rows of len u32: element e of plane p is sm[p * len + e].
-__device__ __forceinline__ bool lex_gt(const uint32_t* sm, int len, int n_keys,
-                                       int a, int b) {
-  for (int k = 0; k < n_keys; ++k) {
-    const uint32_t x = sm[k * len + a];
-    const uint32_t y = sm[k * len + b];
-    if (x != y) return x > y;
-  }
-  return false;
-}
-
-// One compare-exchange stage at distance s (a power of two) over the len
-// shared elements: pair t is (lo, lo + s), lo = 2s * (t / s) + t % s.
-template <typename DescOf>
-__device__ __forceinline__ void stage(uint32_t* sm, int len, const Planes& P,
-                                      int s, DescOf desc_of) {
-  for (int t = threadIdx.x; t < len / 2; t += blockDim.x) {
-    const int lo = ((t & ~(s - 1)) << 1) | (t & (s - 1));
-    const int hi = lo + s;
-    const bool swap = desc_of(lo) ? lex_gt(sm, len, P.n_keys, hi, lo)
-                                  : lex_gt(sm, len, P.n_keys, lo, hi);
-    if (swap) {
-      for (int p = 0; p < P.n_planes; ++p) {
-        const uint32_t a = sm[p * len + lo];
-        sm[p * len + lo] = sm[p * len + hi];
-        sm[p * len + hi] = a;
-      }
-    }
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(kThreads, 2)
 tail_kernel(Planes P, Levels L, int block, int unflip_shift) {
@@ -127,11 +63,7 @@ tail_kernel(Planes P, Levels L, int block, int unflip_shift) {
     auto desc_of = [&](int e) { return (((g0 + e) >> log_2r) & 1) != 0; };
     for (int s = L.start[li]; s >= 1; s >>= 1) stage(sm, block, P, s, desc_of);
   }
-  for (int p = 0; p < P.n_planes; ++p) {
-    for (int e = threadIdx.x; e < block; e += blockDim.x) {
-      store_plane(P.out[p], P.width[p], g0 + e, sm[p * block + e]);
-    }
-  }
+  store_block(sm, P, g0, block);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -158,27 +90,6 @@ span_kernel(Planes P, int p_dim, int w, long long s_lo, long long span,
       store_plane(P.out[p], P.width[p], g, sm[p * len + e]);
     }
   }
-}
-
-bool pow2(long long x) { return x > 0 && (x & (x - 1)) == 0; }
-
-// Fills P from the caller's arrays; false when they are out of range.
-bool make_planes(Planes* P, void* const* ins, void* const* outs,
-                 const int* widths, int n_planes, int n_keys) {
-  if (n_planes < 1 || n_planes > kMaxPlanes || n_keys < 1 ||
-      n_keys > n_planes) {
-    return false;
-  }
-  *P = Planes{};
-  for (int p = 0; p < n_planes; ++p) {
-    if (widths[p] != 1 && widths[p] != 2 && widths[p] != 4) return false;
-    P->in[p] = ins[p];
-    P->out[p] = outs[p];
-    P->width[p] = widths[p];
-  }
-  P->n_planes = n_planes;
-  P->n_keys = n_keys;
-  return true;
 }
 
 }  // namespace

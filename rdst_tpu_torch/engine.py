@@ -7,9 +7,10 @@ with no tuner:
                  else the comparative executor
   comparative  - ``sorts/comparative.py`` (fused bitonic / ``lex_sort``)
   packed       - force level compaction (requires ``counts``)
-
-``bucketed`` (ROADMAP A7) and ``lowmem`` (ROADMAP A6) are not ported yet
-and raise.
+  bucketed     - MSB partition + batched per-bucket sorts (requires
+                 ``counts``; ``sorts/msb.py``)
+  lowmem       - chunked low-memory sort with the fused merge tree
+                 (``sorts/regions.py``)
 """
 from __future__ import annotations
 
@@ -20,10 +21,10 @@ import torch
 
 from rdst_tpu_torch.sorts.comparative import comparative_sort
 from rdst_tpu_torch.sorts.lsb import packed_sort
+from rdst_tpu_torch.sorts.msb import bucketed_sort
+from rdst_tpu_torch.sorts.regions import chunked_sort
 
 __all__ = ["sort_words"]
-
-_NOT_PORTED = {"bucketed": "ROADMAP A7", "lowmem": "ROADMAP A6"}
 
 
 def sort_words(
@@ -47,6 +48,10 @@ def sort_words(
         if counts is None:
             raise ValueError("plan='packed' requires counts")
         return packed_sort(words, payloads, counts, stable=stable)
-    if plan in _NOT_PORTED:
-        raise NotImplementedError(f"plan={plan!r}: {_NOT_PORTED[plan]}")
+    if plan == "bucketed":
+        if counts is None:
+            raise ValueError("plan='bucketed' requires counts")
+        return bucketed_sort(words, payloads, counts, stable=stable)
+    if plan == "lowmem":
+        return chunked_sort(words, payloads, stable=stable)
     raise ValueError(f"unknown plan {plan!r}")

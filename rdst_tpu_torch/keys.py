@@ -117,16 +117,22 @@ def digit_plane(words: Sequence[torch.Tensor], level: int, bits: int = 8):
 
 
 def _split64(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """int64 bit pattern of a u64 value -> (hi, lo) uint32 words."""
-    return P.narrow((u >> 32) & _M32, _U32), P.narrow(u & _M32, _U32)
+    """int64 bit pattern of a u64 value -> (hi, lo) uint32 words (the
+    truncating casts keep each word's bits; no masked temporaries)."""
+    return P.narrow(u >> 32, _U32), P.narrow(u, _U32)
 
 
 def _join64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
-    """(hi, lo) uint32 words -> int64 holding the u64 bit pattern (the
-    signed hi word times 2^32 cannot overflow)."""
-    h = P.widen(hi)
-    h = h - ((h >> 31) << 32)
-    return h * (1 << 32) + P.widen(lo)
+    """(hi, lo) uint32 words -> int64 holding the u64 bit pattern: the hi
+    word's signed value shifted up, the lo word's unsigned value or-ed in.
+    Two int64 temporaries at most, updated in place: at 2^30 keys this is
+    the largest transient of a sort's inverse transform."""
+    out = P.sview(hi).to(torch.int64)
+    out *= 1 << 32  # no overflow: |signed hi| <= 2^31
+    low = P.sview(lo).to(torch.int64)
+    low &= _M32
+    out |= low
+    return out
 
 
 def _float_fold(u: torch.Tensor, nbits: int) -> torch.Tensor:
@@ -312,7 +318,9 @@ def _denormalize_impl(words, n_bytes: int, meta: tuple):
     if dt == torch.uint64:
         return _join64(words[0], words[1]).view(torch.uint64)
     if dt == torch.int64:
-        return _join64(words[0], words[1]) ^ _I64_MIN
+        out = _join64(words[0], words[1])
+        out ^= _I64_MIN
+        return out
     if dt in (torch.float16, torch.bfloat16, torch.float32):
         ut = P.unsigned_of_width(dt.itemsize)
         return P.narrow(_float_unfold(P.widen(words[0]), bits), ut).view(dt)

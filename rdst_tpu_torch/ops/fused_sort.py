@@ -102,12 +102,10 @@ def _ones_mask(dtypes, n_keys):
     return [P.all_ones(dt) if j < n_keys else 0 for j, dt in enumerate(dtypes)]
 
 
-def _stages_plain(v, ones, strides, desc):
+def _asc_stages(v, n_keys, strides):
     """Ascending compare-exchange stages over int64 planes ``v`` at
-    ``strides``; where ``desc`` is set the key planes (``ones[j]`` != 0)
-    are complemented around them, which makes those runs descending."""
-    n_keys = sum(1 for o in ones if o)
-    v = [torch.where(desc, x ^ o, x) if o else x for x, o in zip(v, ones)]
+    ``strides``: pairs (lo, lo + s) swap when the first ``n_keys`` planes
+    are lexicographically greater at lo; every plane follows."""
     n = v[0].shape[0]
     for s in strides:
         halves = [x.view(n // (2 * s), 2, s) for x in v]
@@ -119,6 +117,16 @@ def _stages_plain(v, ones, strides, desc):
             .reshape(n)
             for a, b in zip(lo, hi)
         ]
+    return v
+
+
+def _stages_plain(v, ones, strides, desc):
+    """:func:`_asc_stages`, except that where ``desc`` is set the key planes
+    (``ones[j]`` != 0) are complemented around them, which makes those runs
+    descending."""
+    n_keys = sum(1 for o in ones if o)
+    v = [torch.where(desc, x ^ o, x) if o else x for x, o in zip(v, ones)]
+    v = _asc_stages(v, n_keys, strides)
     return [torch.where(desc, x ^ o, x) if o else x for x, o in zip(v, ones)]
 
 
@@ -193,8 +201,11 @@ def span_plain(planes, n, s_hi, s_lo, two_r, block, n_keys):
     return [P.narrow(x, dt) for x, dt in zip(v, dtypes)]
 
 
-def _plane_ptrs(planes):
-    outs = [torch.empty_like(p) for p in planes]
+def _plane_ptrs(planes, outs=None):
+    """Pointer and width arrays for a C entry point; ``outs`` default to new
+    tensors (pass ``planes`` itself to run in place)."""
+    if outs is None:
+        outs = [torch.empty_like(p) for p in planes]
     k = len(planes)
     ins_a = (ctypes.c_void_p * k)(*[p.data_ptr() for p in planes])
     outs_a = (ctypes.c_void_p * k)(*[p.data_ptr() for p in outs])

@@ -17,6 +17,7 @@ import torch
 import rdst_tpu_torch as rt
 from rdst_tpu_torch import _planes as P
 from rdst_tpu_torch import config
+from rdst_tpu_torch.ops import fused_merge as fm
 from rdst_tpu_torch.ops import fused_sort as fs
 from rdst_tpu_torch.ops import histogram as th
 
@@ -138,6 +139,127 @@ def test_builder_on_cuda_tensors(dev, monkeypatch):
     np.testing.assert_array_equal(p.cpu().numpy(), v[order])
 
 
+@pytest.mark.parametrize(
+    "n,s,dtypes,n_keys",
+    [
+        (1 << 16, 1 << 15, [torch.uint32], 1),
+        (1 << 16, 1 << 7, [torch.uint32] * 4, 3),
+        (1 << 17, 1 << 12, [torch.uint16, torch.uint32, torch.uint8], 2),
+        (1 << 15, 1 << 9, [torch.uint32] * 8, 3),
+        (1 << 10, 1, [torch.uint32, torch.uint32], 1),
+    ],
+)
+def test_merge_stage_kernel(dev, n, s, dtypes, n_keys):
+    pl = _planes(dev, n, dtypes, n + s, high=7)
+    want = fm.merge_stage_plain(pl, n, s, n_keys)
+    _same(fm.merge_stage_cuda(pl, n, s, n_keys), want)
+    own = [p.clone() for p in pl]
+    out = fm.merge_stage_cuda(own, n, s, n_keys, in_place=True)
+    assert all(o.data_ptr() == p.data_ptr() for o, p in zip(out, own))
+    _same(own, want)
+
+
+@pytest.mark.parametrize(
+    "n,block,dtypes,n_keys",
+    [
+        (1 << 16, 4096, [torch.uint32] * 4, 3),
+        (1 << 16, 8192, [torch.uint32, torch.uint32], 2),
+        (1 << 17, 4096, [torch.uint16, torch.uint32, torch.uint8], 2),
+        (1 << 15, 2048, [torch.uint32] * 8, 3),
+        (256, 256, [torch.uint32], 1),
+    ],
+)
+def test_merge_tail_kernel(dev, n, block, dtypes, n_keys):
+    pl = _planes(dev, n, dtypes, n + block, high=7)
+    want = fm.merge_tail_plain(pl, n, block, n_keys)
+    _same(fm.merge_tail_cuda(pl, n, block, n_keys), want)
+    own = [p.clone() for p in pl]
+    fm.merge_tail_cuda(own, n, block, n_keys, in_place=True)
+    _same(own, want)
+
+
+def _sorted_runs(dev, n_runs, m, seed):
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(0, 5000, size=(n_runs, m)).astype(np.uint32), 1)
+    pay = rng.standard_normal((n_runs, m)).astype(np.float32)
+    return (torch.from_numpy(keys.reshape(-1)).to(dev),
+            torch.from_numpy(pay.reshape(-1)).to(dev))
+
+
+def test_fused_merge_and_merge_level_on_the_card(dev):
+    k, v = _sorted_runs(dev, 2, 1 << 16, 1)
+    z = [torch.cat([k[: 1 << 16], k[1 << 16:].flip(0)]),
+         torch.cat([v[: 1 << 16], v[1 << 16:].flip(0)])]
+    before = fm.MERGE_STAGE.launches, fm.MERGE_TAIL.launches
+    got = fm.bitonic_merge_fused(z, 1)
+    assert fm.MERGE_STAGE.launches > before[0]
+    assert fm.MERGE_TAIL.launches > before[1]
+    assert got[1].dtype == torch.float32
+    cpu = fm.bitonic_merge_fused([p.cpu() for p in z], 1)
+    _same([got[0], got[1].view(torch.uint32)],
+          [cpu[0].to(dev), cpu[1].view(torch.uint32).to(dev)])
+    k, v = _sorted_runs(dev, 16, 1 << 12, 2)
+    got = fm.merge_level([k, v], 1 << 12, 1)
+    cpu = fm.merge_level([k.cpu(), v.cpu()], 1 << 12, 1)
+    _same([got[0], got[1].view(torch.uint32)],
+          [cpu[0].to(dev), cpu[1].view(torch.uint32).to(dev)])
+
+
+def test_chunked_sort_on_the_card(dev, monkeypatch):
+    """A Regions pick above the (lowered) memory gate runs chunked_sort:
+    B2/B3 chunk sorts, then the B4/B5 merge tree."""
+    monkeypatch.setattr(config, "low_mem_threshold_bytes", 1)
+    monkeypatch.setattr(config, "fused_min_elems", 1 << 14)
+    rng = np.random.default_rng(9)
+    n = 300_000
+    k = rng.integers(0, 2**63, size=n, dtype=np.int64)
+    k[::3] = 42
+    v = np.arange(n, dtype=np.int32)
+    before = fm.MERGE_STAGE.launches, fm.MERGE_TAIL.launches, fs.TAIL.launches
+    gk, (gv,) = rt.radix_sort_builder(
+        torch.from_numpy(k).to(dev), [torch.from_numpy(v).to(dev)]
+    ).with_algorithm(rt.Algorithm.REGIONS).with_stable().sort()
+    after = fm.MERGE_STAGE.launches, fm.MERGE_TAIL.launches, fs.TAIL.launches
+    assert all(a > b for a, b in zip(after, before))
+    order = np.argsort(k, kind="stable")
+    np.testing.assert_array_equal(gk.cpu().numpy(), k[order])
+    np.testing.assert_array_equal(gv.cpu().numpy(), v[order])
+
+
+def test_bucketed_on_the_card(dev):
+    rng = np.random.default_rng(10)
+    n = 1 << 20
+    k = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+    k[(k >> 24) == 0x55] ^= np.uint32(1 << 24)
+    k[: n // 2] = 0x5555AAAA
+    rng.shuffle(k)
+    v = np.arange(n, dtype=np.uint32)
+    gk, (gv,) = rt.radix_sort_builder(
+        torch.from_numpy(k).to(dev), [torch.from_numpy(v).to(dev)]
+    ).with_algorithm(rt.Algorithm.MT_OOP).with_stable().sort()
+    order = np.argsort(k, kind="stable")
+    np.testing.assert_array_equal(gk.cpu().numpy(), k[order])
+    np.testing.assert_array_equal(gv.cpu().numpy(), v[order])
+
+
+@pytest.mark.parametrize("algo", list(rt.Algorithm), ids=lambda a: a.value)
+def test_every_algorithm_plan_on_the_card(dev, monkeypatch, algo):
+    """Every plan of the registry sorts CUDA tensors (Regions with the
+    memory gate forced open, so it runs the chunked path)."""
+    monkeypatch.setattr(config, "low_mem_threshold_bytes", 1)
+    monkeypatch.setattr(config, "fused_min_elems", 1 << 14)
+    rng = np.random.default_rng(11)
+    k = rng.integers(0, 2**32, size=200_000, dtype=np.uint32)
+    k[::5] = 77
+    v = np.arange(k.size, dtype=np.uint32)
+    gk, (gv,) = rt.radix_sort_builder(
+        torch.from_numpy(k).to(dev), [torch.from_numpy(v).to(dev)]
+    ).with_algorithm(algo).with_stable().sort()
+    order = np.argsort(k, kind="stable")
+    np.testing.assert_array_equal(gk.cpu().numpy(), k[order])
+    np.testing.assert_array_equal(gv.cpu().numpy(), v[order])
+
+
 def test_kernel_wrappers_raise_on_bad_input(dev):
     p = _planes(dev, 1 << 13, [torch.uint32], 1)
     with pytest.raises(ValueError):
@@ -146,3 +268,7 @@ def test_kernel_wrappers_raise_on_bad_input(dev):
         fs.tail_cuda(p * 8, 1 << 13, 1 << 13, 1, [(8, 128)], None)  # smem
     with pytest.raises(TypeError):
         th.histogram_cuda([P.widen(p[0])], 1)  # int64 is not a u32 plane
+    with pytest.raises(ValueError):
+        fm.merge_stage_cuda(p, 1 << 13, 1 << 13, 1)  # stride too large
+    with pytest.raises(ValueError):
+        fm.merge_tail_cuda(p * 8, 1 << 13, 1 << 13, 1)  # smem

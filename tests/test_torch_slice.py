@@ -210,16 +210,29 @@ def test_engine_sort_words_matches_jax(plan):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def test_unported_plans_raise():
-    w = [torch.zeros(N, dtype=torch.uint32)]
-    with pytest.raises(NotImplementedError, match="A7"):
-        engine.sort_words(w, plan="bucketed", counts=np.ones((4, 256)))
-    with pytest.raises(NotImplementedError, match="A6"):
-        engine.sort_words(w, plan="lowmem")
-    x = np.arange(N, dtype=np.uint32)[::-1].copy()
-    with pytest.raises(NotImplementedError, match="A7"):
-        rt.radix_sort_builder(x, device="cpu").with_algorithm(
-            Algorithm.MT_OOP).sort()
+@pytest.mark.parametrize("algo", list(Algorithm), ids=lambda a: a.value)
+def test_every_algorithm_plan_runs_and_matches_jax(algo, monkeypatch, capsys):
+    """Every plan of the registry runs on CPU tensors; Regions with the
+    memory gate forced open, so it takes the chunked path."""
+    monkeypatch.setattr(config, "low_mem_threshold_bytes", 1)
+    monkeypatch.setattr(rdst_tpu.config, "low_mem_threshold_bytes", 1)
+    rng = np.random.default_rng(19)
+    k = rng.integers(0, 2**32, size=N, dtype=np.uint32)
+    k[::5] = 77  # ties
+    v = np.arange(N, dtype=np.uint32)
+    (gk, (gv,)), (wk, (wv,)), trace_t, trace_j = _both(
+        lambda: rt.radix_sort_builder(k, [v], device="cpu")
+        .with_algorithm(algo).with_stable().sort(),
+        lambda: rdst_tpu.radix_sort_builder(k, [v])
+        .with_algorithm(rdst_tpu.Algorithm[algo.name]).with_stable().sort(),
+        capsys,
+    )
+    assert trace_t == trace_j and f"PLAN: {algo.value}" in trace_t
+    order = np.argsort(k, kind="stable")
+    np.testing.assert_array_equal(gk, k[order])
+    np.testing.assert_array_equal(gv, v[order])
+    np.testing.assert_array_equal(gk, np.asarray(wk))
+    np.testing.assert_array_equal(gv, np.asarray(wv))
 
 
 def test_tensor_input_sorts_on_its_device_and_returns_tensors():
