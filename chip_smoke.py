@@ -8,9 +8,10 @@ Run from the checkout root:
 Phases, each printing its own lines:
   1. environment: the card as nvidia-smi names it, and the kernel build;
   2. every kernel of the sort path against its plain PyTorch version on the
-     card, at the shapes the paths give it, bit for bit, with times from
-     CUDA events (median of a few runs): B1-B3, and the merge kernels B4/B5
-     at the chunked path's merge shape (2^25 x 4 planes) and others;
+     card, at the shapes the single-card paths give it, bit for bit, with
+     times from CUDA events (median of a few runs): B1-B3, and the merge
+     kernels B4/B5 at the chunked path's merge shape (2^25 x 4 planes) and
+     others;
   3. the paths end to end through the public API, each driven with every
      launch count set to 0 just before it and read just after, each sorted
      bit-equal to numpy or to torch.sort, each printing its plan trace, time
@@ -24,7 +25,22 @@ Phases, each printing its own lines:
        - a presorted merge of 2^25 u64 keys whose first 15/16 are sorted;
        - the bucketed MtOop plan on 16M u32 key-value pairs, uniform and
          with one key holding half the rows;
-  4. one JSON line of the kernels, then the result line.
+       - the distributed shuffle on a mesh of 8 shards on the card, 2^25
+         rows each: stable u64 + u32 payload (with its peak device memory),
+         the same overlapped, one key on half the rows (unstable), a hot
+         multi-key bucket that refines (2^26), and co-partitioning of a
+         2^27-row dataset under a 2^28 sort's partition; each bit-exact
+         against torch.sort on the card, with its balance (max count over
+         the fair share); between them, the exchange kernel B6 against its
+         plain version at the sizes the stable run sent (with the time of its
+         launches alone, also at even aligned sizes, its kernel's device
+         time and the host's time to enqueue it), and on a random
+         size matrix with empty segments and one overflowing receiver; and
+         B2/B3 at every shape the stable run launched them with, B4/B5 at
+         the overlapped run's merge shapes;
+  4. one JSON line of the kernels, then the result line.  Its times are
+     those of each kernel's most-launched shape on the shuffle (B2-B5), of
+     B6 at the stable run's exchange, and of B1 at 2^25 x 2 words.
 
 Exits non-zero, printing no result, when CUDA is absent, when the package is
 not importable, or when any check fails.  Needs one card; uses no JAX.
@@ -56,6 +72,8 @@ KERNEL_INFO = {
         "rdst_tpu_torch/csrc/merge.cu", "rdst_tpu/ops/pallas_merge.py:208"),
     "merge_tail": (
         "rdst_tpu_torch/csrc/merge.cu", "rdst_tpu/ops/pallas_merge.py:232"),
+    "remote_exchange": (
+        "rdst_tpu_torch/csrc/exchange.cu", "rdst_tpu/parallel/remote_dma.py:225"),
 }
 GiB = 1 << 30
 
@@ -89,6 +107,318 @@ def plain_route(fm, fn):
         fm.merge_stage_call, fm.merge_tail_call = saved
 
 
+@contextlib.contextmanager
+def record_shapes(fs, fm, seen):
+    """While a path runs, count the launches of B2-B5 by their arguments:
+    ``seen[kernel][(dtypes, n, *args)]``.  Only dtypes and integers are
+    kept, no tensors, so the path's time is unchanged."""
+    targets = [("bitonic_tail", fs, "tail_cuda"), ("bitonic_span", fs, "span_cuda"),
+               ("merge_stage", fm, "merge_stage_cuda"),
+               ("merge_tail", fm, "merge_tail_cuda")]
+    saved = [getattr(mod, attr) for _, mod, attr in targets]
+
+    def wrap(name, real):
+        def fn(planes, n, *args, **kw):
+            sig = (tuple(p.dtype for p in planes), n) + tuple(
+                tuple(a) if isinstance(a, list) else a for a in args)
+            book = seen.setdefault(name, {})
+            book[sig] = book.get(sig, 0) + 1
+            return real(planes, n, *args, **kw)
+        return fn
+
+    for (name, mod, attr), real in zip(targets, saved):
+        setattr(mod, attr, wrap(name, real))
+    try:
+        yield seen
+    finally:
+        for (_, mod, attr), real in zip(targets, saved):
+            setattr(mod, attr, real)
+
+
+def check_recorded(fs, fm, seen, planes_of, check):
+    """Each kernel against its plain version at the shapes a path gave it:
+    one case per (plane dtypes, length), the widest span trip or stride of
+    that shape, on fresh random planes (the networks are oblivious, so
+    data does not change their work).  Each kernel's most-launched shape
+    gives the kernels line its times."""
+    fns = {"bitonic_tail": (fs.tail_cuda, fs.tail_plain),
+           "bitonic_span": (fs.span_cuda, fs.span_plain),
+           "merge_stage": (fm.merge_stage_cuda, fm.merge_stage_plain),
+           "merge_tail": (fm.merge_tail_cuda, fm.merge_tail_plain)}
+    for name, book in seen.items():
+        groups = {}
+        for sig, c in book.items():
+            groups.setdefault(sig[:2], []).append((sig, c))
+        top = max(groups, key=lambda g: sum(c for _, c in groups[g]))
+        for shape, sigs in groups.items():
+            if name == "bitonic_span":  # P = 2 s_hi / s_lo
+                sig = max(sigs, key=lambda x: 2 * x[0][2] // x[0][3])[0]
+            elif name == "merge_stage":  # the widest stride
+                sig = max(sigs, key=lambda x: x[0][2])[0]
+            else:  # the first: trip 1 where the path has one
+                sig = sigs[0][0]
+            dtypes, n, args = sig[0], sig[1], [
+                list(a) if isinstance(a, tuple) else a for a in sig[2:]]
+            planes = planes_of(n, dtypes)
+            kern, plain = fns[name]
+            check(name, f"path shape {n} x {len(dtypes)} planes "
+                  f"{'+'.join(str(d).split('.')[-1] for d in dtypes)}, args "
+                  f"{args}; {sum(c for _, c in sigs)} launches of this shape "
+                  f"on the path",
+                  lambda: kern(planes, n, *args), lambda: plain(planes, n, *args),
+                  main_shape=shape == top)
+            del planes
+
+
+def distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32,
+                      planes_of, drive, check, nl=1 << 25):
+    """The distributed shuffle on a mesh of 8 shards on the card, 2^25 rows
+    each (the JAX package's per-chip headline size), exchanged HBM to HBM
+    by B6; B6 against its plain version at the sizes the shuffle sent, and
+    B2-B5 at the shapes the stable and overlapped runs gave them.  Oracles
+    are torch.sort on the card."""
+    D = 8
+    n28 = D * nl
+    mesh = par.make_mesh(D, device=dev)
+    sign = -(1 << 63)
+
+    def okey(hi, lo):
+        """u64 keys as int64 whose signed order is their unsigned order."""
+        return ((P.widen(hi) << 32) | P.widen(lo)) ^ sign
+
+    def split(k):
+        u = k ^ sign
+        return P.narrow(u >> 32, torch.uint32), P.narrow(u & 0xFFFFFFFF, torch.uint32)
+
+    def dense(planes, counts):
+        c = counts.tolist()
+        cap = planes[0].shape[0] // D
+        if max(c) > cap:
+            raise AssertionError(f"a shard overflowed: {max(c)} > {cap}")
+        return [P.cat([p[d * cap:d * cap + c[d]] for d in range(D)]) for p in planes]
+
+    def flat(r):
+        recv, demand, arrived = r
+        return recv + [demand, arrived]
+
+    def same(a, b):
+        return all(torch.equal(P.sview(x), P.sview(y)) for x, y in zip(a, b))
+
+    def balance(label, counts, n):
+        r = int(counts.max()) * D / n
+        print(f"path {label}: max(counts) / fair share = {r:.4f}")
+        return r
+
+    # stable u64 keys + u32 payload, uniform; the exchange's sizes recorded
+    hi, lo = planes_u32(n28, 2)
+    pay = P.arange(n28, torch.uint32, dev)
+    recorded = []
+    real_b6 = rd.remote_dma_exchange_cuda
+
+    def recorder(planes, offs, sizes, capacity):
+        if not recorded:
+            recorded.append(([o.clone() for o in offs],
+                             [z.clone() for z in sizes], capacity))
+        return real_b6(planes, offs, sizes, capacity)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rd.remote_dma_exchange_cuda = recorder
+    label = "distributed stable u64 + u32 payload, 2^28 on 8 shards"
+    seen_flat, seen_overlap = {}, {}
+    try:
+        with record_shapes(fs, fm, seen_flat):
+            (sw, sp, sc), _ = drive(label, n28, lambda: par.distributed_sort(
+                [hi, lo], [pay], mesh=mesh, stable=True), exchange=True)
+    finally:
+        rd.remote_dma_exchange_cuda = real_b6
+    peak = torch.cuda.max_memory_allocated()
+    print(f"distributed 2^28 stable peak device memory: {peak} B "
+          f"({peak / GiB:.2f} GiB), of which inputs {base} B "
+          f"({base / GiB:.2f} GiB) held by the caller")
+    balance(label, sc, n28)
+    ref, idx = torch.sort(okey(hi, lo), stable=True)
+    want = list(split(ref)) + [P.narrow(idx, torch.uint32)]
+    del ref, idx
+    got = dense(sw + sp, sc)
+    if not same(got, want):
+        raise AssertionError("distributed stable 2^28 differs from torch.sort")
+    print("distributed stable 2^28: bit-exact vs torch.sort(stable=True) and its gather")
+    del sw, sp, want
+
+    label = "distributed stable u64 + u32 payload, 2^28, overlap_exchange"
+    with record_shapes(fs, fm, seen_overlap):
+        (ow, op, oc), _ = drive(label, n28, lambda: par.distributed_sort(
+            [hi, lo], [pay], mesh=mesh, stable=True, overlap_exchange=True),
+            merges=True, exchange=True)
+    balance(label, oc, n28)
+    if not (torch.equal(oc, sc) and same(dense(ow + op, oc), got)):
+        raise AssertionError("the overlapped exchange differs from the sequential one")
+    print("distributed overlapped 2^28: bit-exact vs the sequential exchange")
+    del ow, op, oc, got, hi, lo, pay
+    torch.cuda.empty_cache()
+
+    # B2/B3 at the stable run's local and finish sorts, B4/B5 at the
+    # overlapped run's merges (its sorts have the stable run's shapes)
+    if set(seen_flat) != {"bitonic_tail", "bitonic_span"}:
+        raise AssertionError(f"the stable shuffle ran {sorted(seen_flat)}")
+    check_recorded(fs, fm, seen_flat, planes_of, check)
+    check_recorded(fs, fm, {k: seen_overlap[k] for k in ("merge_stage", "merge_tail")},
+                   planes_of, check)
+    torch.cuda.empty_cache()
+
+    # B6 at the stable run's exchange: 8 x 8, 2^25 per sender, one plane
+    offs, sizes, cap = recorded[0]
+    src = [planes_u32(nl, 1) for _ in range(D)]
+
+    def b6_check(label, offs, sizes, cap, main_shape=False):
+        """Receive planes, demand and arrival counters, compared as one
+        flat list."""
+        got = check("remote_exchange", label,
+                    lambda: flat(rd.remote_dma_exchange_cuda(src, offs, sizes, cap)),
+                    lambda: flat(rd.remote_dma_exchange_plain(src, offs, sizes, cap)),
+                    main_shape=main_shape)
+        demand = torch.stack(sizes).sum(0)
+        if not (torch.equal(got[-2], demand)
+                and torch.equal(got[-1][0], torch.clamp(demand, max=cap))):
+            raise AssertionError(f"B6 [{label}]: arrivals differ from min(demand, capacity)")
+        print(f"remote_exchange [{label}]: demand {demand.tolist()}, capacity "
+              f"{cap}, arrivals {got[-1][0].tolist()}")
+
+    b6_check("8 x 8, 2^25 per sender, the 2^28 shuffle's sizes", offs, sizes,
+             cap, main_shape=True)
+    fill_ms = cuda_ms(torch, lambda: P.full(D * cap, 0xFFFFFFFF, torch.uint32, dev))
+    print(f"remote_exchange: the pad fill of the receive buffers alone "
+          f"{fill_ms:.4f} ms ({D * cap * 4} B)")
+    # where the wrapper's time goes: the D launches alone on buffers made
+    # beforehand (CUDA events), the kernel's device time in the profiler,
+    # and the host's time to enqueue the whole call (no synchronize in it)
+    def call():
+        return rd.remote_dma_exchange_cuda(src, offs, sizes, cap)
+
+    def launches_alone(offs, sizes, label):
+        so, sz = torch.stack(offs), torch.stack(sizes)
+        ro = rd.exchange_layout(sz, cap).recv_offsets
+        recv = [P.full(D * cap, rd.PAD_WORD, torch.uint32, dev)]
+        arrived = torch.zeros((1, D), dtype=torch.int64, device=dev)
+        ms = cuda_ms(torch, lambda: rd.launch_all(src, so, sz, ro, recv, arrived, cap))
+        moved = 2 * 4 * int(sz.sum())
+        print(f"remote_exchange: the {D} launches alone, {label}: {ms:.4f} ms "
+              f"({moved} B read + written, {moved / ms / 1e9:.4f} TB/s; CUDA "
+              f"events, median of {REPS})")
+        return moved
+
+    moved = launches_alone(offs, sizes, "the shuffle's sizes")
+    # every segment 2^22 rows, so every copy starts on a 16 MiB boundary:
+    # the shuffle's segments start anywhere
+    seg = nl // D
+    even = [torch.full((D,), seg, dtype=torch.int64, device=dev)] * D
+    launches_alone([torch.arange(D, device=dev) * seg] * D, even,
+                   f"even sizes of {seg} rows (aligned)")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            call()
+        torch.cuda.synchronize()
+    kern_us = [e.self_device_time_total for e in prof.key_averages()
+               if "exchange_kernel" in e.key]
+    if not kern_us:
+        raise AssertionError("the profiler saw no B6 launch")
+    kern_ms = sum(kern_us) / 1e3 / REPS
+    enqueue = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    print(f"remote_exchange at the shuffle's sizes: the kernel's device time per "
+          f"call {kern_ms:.4f} ms ({moved / kern_ms / 1e9:.4f} TB/s; profiler, "
+          f"mean of {REPS}); host time to enqueue the call "
+          f"{statistics.median(enqueue):.4f} ms (median of {REPS})")
+    sm = torch.randint(0, nl // 16, (D, D), generator=gen, device=dev)
+    sm[0, 1] = 0
+    sm[5, :] = 0
+    sm[:, 6] = 0
+    sm[:, 3] = nl // 4  # receiver 3 demands 2^26 rows of a 2^25 buffer
+    roffs = list(torch.cumsum(sm, 1) - sm)
+    b6_check("8 x 8, random sizes, empty segments, receiver 3 overflows",
+             roffs, list(sm), nl)
+    del src
+    torch.cuda.empty_cache()
+
+    # one key on half the rows, keys only, unstable: single-key rank split
+    hi, lo = planes_u32(n28, 2)
+    P.sview(hi)[: n28 // 2] = 0x5555AAAA
+    P.sview(lo)[: n28 // 2] = 0x12345678
+    label = "distributed unstable u64, one key on half of 2^28"
+    (kw, _, kc), _ = drive(label, n28, lambda: par.distributed_sort(
+        [hi, lo], mesh=mesh), exchange=True)
+    if balance(label, kc, n28) > 1.05:
+        raise AssertionError("the hot key did not split by rank")
+    if not same(dense(kw, kc), split(torch.sort(okey(hi, lo)).values)):
+        raise AssertionError("distributed hot-key 2^28 differs from torch.sort")
+    print("distributed hot key 2^28: bit-exact vs torch.sort")
+    del kw, kc, hi, lo
+    torch.cuda.empty_cache()
+
+    # test_overflow.py's hot multi-key bucket at 2^26: it must refine
+    n26 = n28 // 4
+    hi = P.full(n26, 0, torch.uint32, dev)
+    lo = planes_u32(n26, 1, 256)[0]
+    rhi, rlo = planes_u32(n26 // 8, 2)
+    P.sview(hi)[: n26 // 8] = P.sview(rhi)
+    P.sview(lo)[: n26 // 8] = P.sview(rlo)
+    pay = P.arange(n26, torch.uint32, dev)
+    label = "distributed stable hot multi-key bucket, 2^26 (refines)"
+    (hw, hp, hc), _ = drive(label, n26, lambda: par.distributed_sort(
+        [hi, lo], [pay], mesh=mesh, stable=True), exchange=True)
+    if balance(label, hc, n26) > 1.35:
+        raise AssertionError("the hot multi-key bucket did not refine")
+    ref, idx = torch.sort(okey(hi, lo), stable=True)
+    if not same(dense(hw + hp, hc), list(split(ref)) + [P.narrow(idx, torch.uint32)]):
+        raise AssertionError("distributed hot bucket 2^26 differs from torch.sort")
+    print("distributed hot bucket 2^26: bit-exact vs torch.sort(stable=True)")
+    del hw, hp, hc, hi, lo, rhi, rlo, pay, ref, idx
+    torch.cuda.empty_cache()
+
+    # co-partitioning: a 2^28 sort's partition routes a 2^27-row dataset
+    ahi, alo = planes_u32(n28, 2)
+    label = "distributed 2^28 u64, split_uniform=False, return_partition"
+    (aw, _, ac, part), _ = drive(label, n28, lambda: par.distributed_sort(
+        [ahi, alo], mesh=mesh, split_uniform=False, return_partition=True),
+        exchange=True)
+    balance(label, ac, n28)
+    n27 = n28 // 2
+    pick = torch.randint(0, n28, (n27 // 2,), generator=gen, device=dev)
+    bhi, blo = [P.cat([P.take(a, pick), planes_u32(n27 // 2, 1)[0]])
+                for a in (ahi, alo)]
+    bpay = P.arange(n27, torch.uint32, dev)
+    del ahi, alo, pick
+    label = "co-partition: partition_exchange of 2^27 rows + u32 payload"
+    (bw, bp, bc), _ = drive(label, n27, lambda: par.partition_exchange(
+        [bhi, blo], [bpay], part, mesh=mesh, stable=True), exchange=True)
+    balance(label, bc, n27)
+    ref, idx = torch.sort(okey(bhi, blo), stable=True)
+    g = dense(bw + bp, bc)
+    if not same(g, list(split(ref)) + [P.narrow(idx, torch.uint32)]):
+        raise AssertionError("partition_exchange 2^27 differs from torch.sort")
+    del ref, idx, bw, bp
+    akeys = okey(*dense(aw, ac))
+    bkeys = okey(g[0], g[1])
+    ashard = torch.repeat_interleave(torch.arange(D, device=dev), ac)
+    bshard = torch.repeat_interleave(torch.arange(D, device=dev), bc)
+    pos = torch.searchsorted(akeys, bkeys).clamp_(max=akeys.numel() - 1)
+    found = akeys[pos] == bkeys
+    if int(found.sum()) < n27 // 2 or not torch.equal(ashard[pos][found], bshard[found]):
+        raise AssertionError("co-partitioned keys landed on different shards")
+    print(f"co-partition: bit-exact vs torch.sort; {int(found.sum())} of {n27} "
+          "rows share a key with the 2^28 dataset, each on that key's shard")
+    del aw, ac, akeys, bkeys, ashard, bshard, pos, found, g, bhi, blo, bpay
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -103,6 +433,8 @@ def main() -> int:
         from rdst_tpu_torch.ops import fused_merge as fm
         from rdst_tpu_torch.ops import fused_sort as fs
         from rdst_tpu_torch.ops import histogram as H
+        from rdst_tpu_torch import parallel as par
+        from rdst_tpu_torch.parallel import remote_dma as rd
     except ImportError as e:
         print(f"chip_smoke: rdst_tpu_torch is not importable: {e}",
               file=sys.stderr)
@@ -206,8 +538,7 @@ def main() -> int:
     blk = fs.pick_blocks(2)[1]
     check("bitonic_tail", f"2^25 x 2, trip 1, block {blk}, un-flip",
           lambda: fs.tail_cuda(w, n, blk, 2, [(13, 4096)], 12),
-          lambda: fs.tail_plain(w, n, blk, 2, [(13, 4096)], 12),
-          main_shape=True)
+          lambda: fs.tail_plain(w, n, blk, 2, [(13, 4096)], 12))
     check("bitonic_tail", "2^25 x 2, two levels, un-flip",
           lambda: fs.tail_cuda(w, n, blk, 2, [(12, 2048), (13, 4096)], 11),
           lambda: fs.tail_plain(w, n, blk, 2, [(12, 2048), (13, 4096)], 11))
@@ -229,15 +560,14 @@ def main() -> int:
                                 [(20, blk8 // 2)], None))
 
     # B3: the u64 sort's span trips at P = 64, 8 and 2, narrow and 8 planes
-    for s_hi, s_lo, two_r, main in [(1 << 24, 1 << 19, 1 << 25, True),
-                                    (1 << 18, 1 << 13, 1 << 25, False),
-                                    (1 << 15, 1 << 13, 1 << 16, False),
-                                    (1 << 13, 1 << 13, 1 << 14, False)]:
+    for s_hi, s_lo, two_r in [(1 << 24, 1 << 19, 1 << 25),
+                              (1 << 18, 1 << 13, 1 << 25),
+                              (1 << 15, 1 << 13, 1 << 16),
+                              (1 << 13, 1 << 13, 1 << 14)]:
         p_dim = 2 * s_hi // s_lo
         check("bitonic_span", f"2^25 x 2, P={p_dim}, s_hi=2^{s_hi.bit_length() - 1}",
               lambda: fs.span_cuda(w, n, s_hi, s_lo, two_r, blk, 2),
-              lambda: fs.span_plain(w, n, s_hi, s_lo, two_r, blk, 2),
-              main_shape=main)
+              lambda: fs.span_plain(w, n, s_hi, s_lo, two_r, blk, 2))
     check("bitonic_span", "2^24 u16+u32 keys, u8 rider, P=16",
           lambda: fs.span_cuda(narrow, 1 << 24, 1 << 16, 1 << 13, 1 << 18,
                                blk3, 2),
@@ -259,11 +589,10 @@ def main() -> int:
     for s_ in (1 << 24, 1 << 13):
         check("merge_stage", f"2^25 x 4, stride 2^{s_.bit_length() - 1}",
               lambda: fm.merge_stage_cuda(z4, n, s_, 3),
-              lambda: fm.merge_stage_plain(z4, n, s_, 3),
-              main_shape=s_ == 1 << 24)
+              lambda: fm.merge_stage_plain(z4, n, s_, 3))
     check("merge_tail", f"2^25 x 4, block {blk4}",
           lambda: fm.merge_tail_cuda(z4, n, blk4, 3),
-          lambda: fm.merge_tail_plain(z4, n, blk4, 3), main_shape=True)
+          lambda: fm.merge_tail_plain(z4, n, blk4, 3))
     del z4
     m24 = 1 << 24
     narrow = planes_of(m24, [torch.uint16, torch.uint32, torch.uint8], 7)
@@ -306,7 +635,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     launches = {name: 0 for name in KERNEL_INFO}
 
-    def drive(label, n_keys, fn, merges=False):
+    def drive(label, n_keys, fn, merges=False, exchange=False):
         """Run one path with every launch count set to 0 just before it and
         read just after; print its plan trace, time and rate."""
         for k in _build.KERNELS.values():
@@ -326,6 +655,8 @@ def main() -> int:
               f"plan: {plans}; launches {counts}")
         if merges and not (counts["merge_stage"] > 0 and counts["merge_tail"] > 0):
             raise AssertionError(f"path {label} merged without B4 and B5")
+        if exchange and counts["remote_exchange"] <= 0:
+            raise AssertionError(f"path {label} exchanged without B6")
         return out, plans
 
     x64 = rng.integers(0, 2**64, size=1 << 25, dtype=np.uint64)
@@ -442,6 +773,11 @@ def main() -> int:
         if "BatchedRows[" not in plans or hot != ("SingleKeySkip" in plans):
             raise AssertionError(f"bucketed (hot={hot}) plan: {plans}")
         print(f"bucketed 16M (hot={hot}): bit-exact vs numpy stable argsort")
+    del kb, vb, gk, gv, order
+    torch.cuda.empty_cache()
+
+    distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32, planes_of,
+                      drive, check)
     print(f"launches on the paths: {launches}")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -55,6 +55,25 @@ low_mem_threshold_bytes = 10 << 30
 #: package's.  Either plan gives the same sorted output.
 max_bucketed_elements = 20_000_000
 
+# The distributed shuffle (``parallel/shuffle.py``).  These three are
+# algorithm parameters of ``rdst_tpu/config.py``, carried over unchanged.
+# ``use_remote_dma_exchange`` has no counterpart: with every shard in one
+# process the exchange always runs kernel B6 on CUDA shards and its plain
+# version on CPU shards.
+
+#: Stage-1 buffer of the 2-axis (host, chip) exchange, as a multiple of the
+#: final capacity: skewed routing can funnel more than one chip's final
+#: share through one chip column in stage 1.
+hier_stage1_headroom = 1.5
+
+#: Hot-bucket refinement levels of the shuffle's partition (a fresh 16-bit
+#: window over the hottest multi-key bucket per level); 0 disables.
+shuffle_refine_levels = 2
+
+#: ``partition_exchange`` of a dataset of at most this many rows gives every
+#: shard full-table capacity, so a small table co-partitions against any skew.
+replicate_capacity_max = 1 << 16
+
 # work_profiles-equivalent: trace per-level algorithm picks
 # (reference: Cargo.toml:18, src/sorter.rs:78-79).
 _work_profiles = [False]

@@ -1,0 +1,28 @@
+"""The distributed shuffle of ``rdst_tpu.parallel`` over a mesh of shards.
+
+    from rdst_tpu_torch.parallel import make_mesh, distributed_sort, gather_valid
+    mesh = make_mesh(8)                       # 8 shards on the current card
+    words, payloads, counts = distributed_sort([hi, lo], [pay], mesh=mesh)
+    hi_s, lo_s, pay_s = gather_valid(words + payloads, counts)
+
+``make_mesh(8, device="cpu")`` runs the same code with the exchange's plain
+version.  The distributed table operators (``dtable.py``) are not ported
+yet.
+"""
+from rdst_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d
+from rdst_tpu_torch.parallel.shuffle import (
+    distributed_sort,
+    distributed_sort_auto,
+    gather_valid,
+    partition_exchange,
+)
+
+__all__ = [
+    "Mesh",
+    "distributed_sort",
+    "distributed_sort_auto",
+    "partition_exchange",
+    "gather_valid",
+    "make_mesh",
+    "make_mesh_2d",
+]

@@ -1,0 +1,189 @@
+"""The exchange of the distributed shuffle (kernel B6).
+
+Port of ``rdst_tpu/parallel/remote_dma.py``.  Every sender copies its
+segment for destination d into d's receive buffer; the result is the
+contract of the ragged branch of ``shuffle._exchange_raw``: received
+planes, and each receiver's exact demand (the rows it was sent, which may
+exceed its buffer: the overflow signal).
+
+The TPU kernel sends 128-lane-aligned segments in fixed chunks of 16 x 128
+elements into chunk-rounded receiver slots (``dma_layout``), because that is
+the addressing its DMA engine does well.  A CUDA copy addresses elements, so
+the port keeps only the exact ragged layout of ``ragged_all_to_all``: sender
+s's segment for d lands at offset ``sum(size[:s, d])`` of d's buffer
+(:func:`exchange_layout`).  Kernel and plain version therefore agree bit for
+bit, pads included.
+
+:func:`remote_dma_exchange` is the wrapper: CUDA planes launch
+``csrc/exchange.cu`` once per (sender, plane) on PyTorch's current stream,
+with no host synchronisation; CPU planes run
+:func:`remote_dma_exchange_plain`, slice copies in PyTorch.  Receive buffers
+are one allocation of D x capacity elements per plane, filled with the pad
+word before the first launch; receiver d's buffer is the view
+``[d * capacity, (d + 1) * capacity)``.  All shards of an exchange lie on one
+device: stream order stands in for the reference's barrier.  Shards on
+several cards (peer-mapped destination pointers, events in place of the
+barrier) are later work.
+
+Planes are u32.  Any other dtype raises ``TypeError`` before anything is
+allocated or launched: the reference's docstring promised a fallback for
+narrow planes that its code never had (remote_dma.py:41-43 against
+:217-221).  The shuffle itself views 4-byte payloads as u32.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Sequence
+
+import torch
+
+from rdst_tpu_torch import _build
+from rdst_tpu_torch import _planes as P
+
+__all__ = [
+    "PAD_WORD", "EXCHANGE", "Layout", "exchange_layout", "remote_dma_exchange",
+    "remote_dma_exchange_plain", "remote_dma_exchange_cuda", "launch_all",
+]
+
+PAD_WORD = 0xFFFFFFFF
+
+EXCHANGE = _build.Kernel(
+    "remote_exchange", "rdst_remote_exchange",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
+                             ctypes.c_longlong, ctypes.c_void_p,
+                             ctypes.c_void_p],
+)
+
+
+class Layout(NamedTuple):
+    """Where every segment of an exchange lands, from the (D, D) size matrix
+    ``sizes[s, d]`` (rows sender s sends receiver d)."""
+
+    #: (D, D) [s, d]: offset of sender s's segment in receiver d's buffer
+    recv_offsets: torch.Tensor
+    #: (D, D) [s, d]: elements of that segment that land inside the buffer
+    landed: torch.Tensor
+    #: (D,) rows each receiver is sent (its reported count)
+    demand: torch.Tensor
+
+
+def exchange_layout(size_matrix: torch.Tensor, capacity: int) -> Layout:
+    """The port's counterpart of ``dma_layout``: exact ragged offsets.
+
+    Sender and receiver read the same matrix, so where sender s writes on
+    receiver d is where d expects s; a segment that would cross the
+    capacity keeps only its part below it, so no write leaves the buffer."""
+    sm = size_matrix.to(torch.int64)
+    recv_off = torch.cumsum(sm, 0) - sm
+    landed = torch.clamp(torch.minimum(sm, capacity - recv_off), min=0)
+    return Layout(recv_off, landed, sm.sum(0))
+
+
+def _check(planes, input_offsets, send_sizes):
+    D = len(planes)
+    if D < 1 or len(input_offsets) != D or len(send_sizes) != D:
+        raise ValueError("one plane list, offset and size vector per sender")
+    k = len(planes[0])
+    for ps in planes:
+        if len(ps) != k:
+            raise ValueError("every sender sends the same number of planes")
+        for p in ps:
+            if p.dtype != torch.uint32:
+                raise TypeError(
+                    f"remote_dma_exchange carries u32 planes only, got {p.dtype}"
+                )
+            if p.ndim != 1:
+                raise ValueError("exchange planes must be 1-D")
+    for v in list(input_offsets) + list(send_sizes):
+        if v.shape != (D,):
+            raise ValueError(f"offsets and sizes must be ({D},) per sender")
+    return D, k
+
+
+def remote_dma_exchange_plain(planes, input_offsets, send_sizes, capacity):
+    """Plain PyTorch version of B6: the same layout, by slice copies.
+
+    Returns ``(recv, demand, arrived)``: ``recv[j]`` is plane j of every
+    receiver, (D * capacity,) with the pad word where nothing landed;
+    ``demand`` (D,) int64; ``arrived`` (planes, D) int64, the elements that
+    landed per receiver, min(demand, capacity)."""
+    D, k = _check(planes, input_offsets, send_sizes)
+    dev = planes[0][0].device
+    offs = torch.stack([o.to(dev, torch.int64) for o in input_offsets])
+    sizes = torch.stack([s.to(dev, torch.int64) for s in send_sizes])
+    lay = exchange_layout(sizes, capacity)
+    offs, dst, landed = offs.tolist(), lay.recv_offsets.tolist(), lay.landed.tolist()
+    recv = [P.full(D * capacity, PAD_WORD, torch.uint32, dev) for _ in range(k)]
+    for j in range(k):
+        for s in range(D):
+            EXCHANGE.plain_calls += 1
+            src = planes[s][j]
+            for d in range(D):
+                m = landed[s][d]
+                if m:
+                    o = d * capacity + dst[s][d]
+                    recv[j][o: o + m] = src[offs[s][d]: offs[s][d] + m]
+    arrived = lay.landed.sum(0).expand(k, D).clone()
+    return recv, lay.demand, arrived
+
+
+def remote_dma_exchange_cuda(planes, input_offsets, send_sizes, capacity):
+    """Launch B6 (``csrc/exchange.cu``) once per (sender, plane).  Same
+    return as :func:`remote_dma_exchange_plain`; ``arrived`` is counted by
+    the kernel."""
+    D, k = _check(planes, input_offsets, send_sizes)
+    flat = [p for ps in planes for p in ps]
+    dev, _ = _build.check_cuda_planes(flat[:1], (torch.uint32,))
+    for p in flat:
+        if p.device != dev or not p.is_contiguous():
+            raise ValueError("exchange planes must be contiguous, on one CUDA device")
+    offs = torch.stack([o.to(dev, torch.int64) for o in input_offsets])
+    sizes = torch.stack([s.to(dev, torch.int64) for s in send_sizes])
+    lay = exchange_layout(sizes, capacity)
+    recv = [P.full(D * capacity, PAD_WORD, torch.uint32, dev) for _ in range(k)]
+    arrived = torch.zeros((k, D), dtype=torch.int64, device=dev)
+    launch_all(planes, offs, sizes, lay.recv_offsets, recv, arrived, capacity)
+    return recv, lay.demand, arrived
+
+
+def launch_all(planes, offs, sizes, recv_offsets, recv, arrived, capacity):
+    """The launches of one exchange, on buffers the caller prepared:
+    ``offs``, ``sizes`` and ``recv_offsets`` (D, D) int64 and ``recv`` (one
+    pad-filled (D * capacity,) plane per sent plane) on the planes' device;
+    adds the landed elements to ``arrived`` (planes, D).  Split out so the
+    launches can be timed without the allocation and the fill."""
+    D = len(planes)
+    dev = recv[0].device
+    step = torch.arange(D, dtype=torch.int64, device=dev) * (capacity * 4)
+    stream = _build.stream_of(recv[0])
+    for j, out in enumerate(recv):
+        dst_ptr = step + out.data_ptr()
+        for s in range(D):
+            src = planes[s][j]
+            EXCHANGE.launch(
+                dev, src.data_ptr(), offs[s].data_ptr(), sizes[s].data_ptr(),
+                dst_ptr.data_ptr(), recv_offsets[s].data_ptr(), D,
+                min(int(src.shape[0]), capacity), capacity,
+                arrived[j].data_ptr(), stream,
+            )
+
+
+def remote_dma_exchange(
+    planes: Sequence[Sequence[torch.Tensor]],
+    input_offsets: Sequence[torch.Tensor],
+    send_sizes: Sequence[torch.Tensor],
+    capacity: int,
+):
+    """Exchange contiguous per-destination segments among D shards.
+
+    ``planes[s]``: sender s's u32 planes; ``input_offsets[s]`` and
+    ``send_sizes[s]``: (D,) where s's segment for each destination starts
+    and how long it is.  Returns ``(recv, demand, arrived)`` as
+    :func:`remote_dma_exchange_plain` describes.  CUDA planes launch the
+    kernel (or raise); CPU planes run the plain version."""
+    dev = planes[0][0].device.type
+    if dev == "cuda":
+        return remote_dma_exchange_cuda(planes, input_offsets, send_sizes, capacity)
+    if dev != "cpu":
+        raise ValueError(f"no exchange kernel for device {planes[0][0].device}")
+    return remote_dma_exchange_plain(planes, input_offsets, send_sizes, capacity)

@@ -20,6 +20,8 @@ from rdst_tpu_torch import config
 from rdst_tpu_torch.ops import fused_merge as fm
 from rdst_tpu_torch.ops import fused_sort as fs
 from rdst_tpu_torch.ops import histogram as th
+from rdst_tpu_torch import parallel as tpar
+from rdst_tpu_torch.parallel import remote_dma as rd
 
 pytestmark = pytest.mark.cuda
 
@@ -260,6 +262,103 @@ def test_every_algorithm_plan_on_the_card(dev, monkeypatch, algo):
     np.testing.assert_array_equal(gv.cpu().numpy(), v[order])
 
 
+def _exchange_inputs(dev, D, n_local, case, seed):
+    rng = np.random.default_rng(seed)
+    sm = rng.integers(0, n_local // D + 1, size=(D, D))
+    if case == "edges":
+        sm[0, :] = 0
+        sm[:, D - 1] = 0
+        sm[1, 0] = 1
+    if case == "overflow":
+        sm[:, 1] = n_local // D  # receiver 1 demands n_local
+    offs = np.cumsum(sm, 1) - sm
+    planes = _planes(dev, D * n_local, [torch.uint32] * 2, seed)
+    planes = [[p[s * n_local:(s + 1) * n_local] for p in planes] for s in range(D)]
+    return (planes, [torch.from_numpy(o).to(dev) for o in offs],
+            [torch.from_numpy(z).to(dev) for z in sm], sm)
+
+
+@pytest.mark.parametrize("D,case,cap", [
+    (8, "random", 1 << 14), (8, "edges", 5000), (8, "overflow", 3000),
+    (3, "random", 9000), (1, "random", 1 << 14),
+])
+def test_remote_exchange_kernel(dev, D, case, cap):
+    """B6 against its plain version: buffers bit-equal, pads included;
+    every arrival counter min(demand, capacity); the demand reported."""
+    planes, offs, sizes, sm = _exchange_inputs(dev, D, 1 << 14, case, D + cap)
+    before = rd.EXCHANGE.launches
+    got, demand, arrived = rd.remote_dma_exchange_cuda(planes, offs, sizes, cap)
+    torch.cuda.synchronize()
+    assert rd.EXCHANGE.launches == before + 2 * D
+    want, wdemand, warrived = rd.remote_dma_exchange_plain(planes, offs, sizes, cap)
+    _same(got, want)
+    assert torch.equal(demand, wdemand) and torch.equal(arrived, warrived)
+    want_arr = np.minimum(sm.sum(0), cap)
+    np.testing.assert_array_equal(arrived.cpu().numpy(), np.tile(want_arr, (2, 1)))
+    np.testing.assert_array_equal(demand.cpu().numpy(), sm.sum(0))
+
+
+def _u64_on(dev, n, seed, high=None):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2**64 if high is None else high, size=n, dtype=np.uint64)
+    return x, [torch.from_numpy((x >> np.uint64(32)).astype(np.uint32)).to(dev),
+               torch.from_numpy((x & np.uint64(0xFFFFFFFF)).astype(np.uint32)).to(dev)]
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_distributed_sort_on_the_card(dev, monkeypatch, overlap):
+    """distributed_sort on make_mesh(4) on the card: through B2/B3 (fused
+    local sorts) and B6 (every exchange), bit-equal to numpy and to the
+    same call on a CPU mesh."""
+    monkeypatch.setattr(config, "fused_min_elems", 1 << 14)
+    n = 4 * (1 << 15)
+    x, words = _u64_on(dev, n, 21, high=1 << 40)
+    pay = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    before = rd.EXCHANGE.launches, fs.TAIL.launches
+    w, p, c = tpar.distributed_sort(words, [pay], mesh=tpar.make_mesh(4),
+                                    stable=True, overlap_exchange=overlap)
+    assert rd.EXCHANGE.launches > before[0] and fs.TAIL.launches > before[1]
+    assert w[0].device.type == "cuda" and c.shape == (4,)
+    hi, lo, got_p = tpar.gather_valid(w + p, c)
+    order = np.argsort(x, kind="stable")
+    np.testing.assert_array_equal((hi.astype(np.uint64) << np.uint64(32)) | lo,
+                                  x[order])
+    np.testing.assert_array_equal(got_p, order.astype(np.uint32))
+    cw, cp, cc = tpar.distributed_sort([t.cpu() for t in words], [pay.cpu()],
+                                       mesh=tpar.make_mesh(4, device="cpu"),
+                                       stable=True, overlap_exchange=overlap)
+    _same([c.cpu().view(torch.int64)], [cc.view(torch.int64)])
+    _same([t.cpu() for t in w + p], cw + cp)
+
+
+def test_copartition_and_hot_key_on_the_card(dev):
+    """Unstable single-key rank split and co-partitioning on the card."""
+    mesh = tpar.make_mesh(8)
+    n = 8 * 4096
+    x, words = _u64_on(dev, n, 22)
+    x[: n // 2] = 0xDEADBEEF12345678
+    words = [torch.from_numpy((x >> np.uint64(32)).astype(np.uint32)).to(dev),
+             torch.from_numpy((x & np.uint64(0xFFFFFFFF)).astype(np.uint32)).to(dev)]
+    w, _, c = tpar.distributed_sort(words, mesh=mesh, capacity_factor=1.05)
+    assert int(c.max()) <= int(1.05 * n / 8)
+    hi, lo = tpar.gather_valid(w, c)
+    np.testing.assert_array_equal((hi.astype(np.uint64) << np.uint64(32)) | lo,
+                                  np.sort(x))
+    _, _, c, part = tpar.distributed_sort(
+        words, mesh=mesh, capacity_factor=3.0, split_uniform=False,
+        return_partition=True)
+    rng = np.random.default_rng(23)
+    q = np.concatenate([x[rng.integers(0, n, n // 2)], x[: n // 2] + np.uint64(1)])
+    qw = [torch.from_numpy((q >> np.uint64(32)).astype(np.uint32)).to(dev),
+          torch.from_numpy((q & np.uint64(0xFFFFFFFF)).astype(np.uint32)).to(dev)]
+    rw, _, rc = tpar.partition_exchange(qw, [], part, mesh=mesh, capacity_factor=3.0)
+    cw, _, cc = tpar.partition_exchange([t.cpu() for t in qw], [], part,
+                                        mesh=tpar.make_mesh(8, device="cpu"),
+                                        capacity_factor=3.0)
+    np.testing.assert_array_equal(rc.cpu().numpy(), cc.numpy())
+    _same([t.cpu() for t in rw], cw)
+
+
 def test_kernel_wrappers_raise_on_bad_input(dev):
     p = _planes(dev, 1 << 13, [torch.uint32], 1)
     with pytest.raises(ValueError):
@@ -272,3 +371,6 @@ def test_kernel_wrappers_raise_on_bad_input(dev):
         fm.merge_stage_cuda(p, 1 << 13, 1 << 13, 1)  # stride too large
     with pytest.raises(ValueError):
         fm.merge_tail_cuda(p * 8, 1 << 13, 1 << 13, 1)  # smem
+    sizes = [torch.zeros(2, dtype=torch.int64, device=dev)] * 2
+    with pytest.raises(TypeError):  # B6 carries u32 planes only
+        rd.remote_dma_exchange_cuda([[P.widen(p[0])]] * 2, sizes, sizes, 16)

@@ -1,0 +1,192 @@
+"""The port's exchange (parallel/remote_dma.py, kernel B6's plain version)
+against the JAX package's ``shuffle._exchange_raw``.
+
+The JAX side runs the ragged branch (``use_ragged=True``) on the virtual
+8-device CPU mesh, with ``jax.lax.ragged_all_to_all`` replaced by the
+traceable emulation of ``tests/test_exchange_parity.py`` (XLA:CPU has no
+ragged all-to-all).  The port runs the same exchange on ``make_mesh(D,
+device="cpu")``.  Received planes are bit-equal, pads included; validity
+masks and counts are equal, including a receiver whose demand exceeds its
+capacity.  Nothing in ``rdst_tpu`` changes.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as PS
+from test_exchange_parity import _emulated_ragged_all_to_all
+
+from rdst_tpu.parallel import make_mesh as jmake_mesh
+from rdst_tpu.parallel import shuffle as jshuffle
+from rdst_tpu_torch.parallel import remote_dma as rd
+from rdst_tpu_torch.parallel import shuffle as tshuffle
+
+torch.set_num_threads(1)
+
+PAD = 0xFFFFFFFF
+
+
+def _size_matrix(rng, D, n_local, case):
+    """(D, D) [sender, receiver] sizes, each row summing to <= n_local."""
+    if D == 1:
+        return np.array([[n_local]], np.int64)
+    m = rng.integers(0, 2 * n_local // D, size=(D, D))
+    if case == "edges":
+        m[0, 1] = 0  # zero
+        m[D // 2, D - 1] = 128  # an exact multiple of a lane row
+        m[1, D // 2] = 1  # one element
+        m[:, D - 2] = 0  # a receiver that gets nothing
+        m[D - 1, :] = 0  # a sender that sends nothing
+    elif case == "overflow":
+        m[:, 2] = n_local // 2  # receiver 2's demand: 4 n_local
+    m = np.minimum(m, n_local // D)  # rows never exceed n_local
+    return m.astype(np.int64)
+
+
+def _offsets(rng, sm, n_local):
+    """Send offsets: segments in destination order, with a random gap in
+    front (the exchange takes any offsets, not only a prefix sum)."""
+    off = np.cumsum(sm, 1) - sm
+    slack = n_local - sm.sum(1)
+    return off + rng.integers(0, slack + 1)[:, None]
+
+
+def _jax_exchange(planes, offs, sizes, capacity, monkeypatch):
+    """JAX ``_exchange_raw`` (ragged branch) under shard_map."""
+    monkeypatch.setattr(jax.lax, "ragged_all_to_all", _emulated_ragged_all_to_all)
+    D = offs.shape[0]
+    k = len(planes)
+    n_local = planes[0].shape[0] // D
+
+    def body(*args):
+        me = jax.lax.axis_index("shard")
+        out, valid, nv = jshuffle._exchange_raw(
+            list(args[:k]), args[k], args[k + 1], capacity, True, "shard", D,
+            me, n_local,
+        )
+        return tuple(out) + (valid, nv[None])
+
+    fn = jax.shard_map(
+        body, mesh=jmake_mesh(D), in_specs=tuple(PS("shard") for _ in range(k + 2)),
+        out_specs=tuple(PS("shard") for _ in range(k + 2)),
+    )
+    res = fn(*[jnp.asarray(p) for p in planes],
+             jnp.asarray(offs.reshape(-1).astype(np.int32)),
+             jnp.asarray(sizes.reshape(-1).astype(np.int32)))
+    return [np.asarray(r) for r in res]
+
+
+def _port_exchange(planes, offs, sizes, capacity):
+    D = offs.shape[0]
+    n_local = planes[0].shape[0] // D
+    shards = [[torch.from_numpy(p[s * n_local:(s + 1) * n_local].copy())
+               for p in planes] for s in range(D)]
+    recv, n_valid, bufs = tshuffle._exchange_raw(
+        shards, [torch.from_numpy(o) for o in offs],
+        [torch.from_numpy(z) for z in sizes], capacity, [list(range(D))],
+    )
+    valid = torch.cat([torch.arange(capacity) < nv for nv in n_valid])
+    return [b.numpy() for b in bufs[0]], valid.numpy(), torch.stack(n_valid).numpy()
+
+
+@pytest.mark.parametrize(
+    "D,n_planes,case",
+    [(8, 1, "random"), (8, 2, "edges"), (8, 1, "overflow"), (4, 1, "edges"),
+     (1, 2, "random")],
+)
+def test_exchange_matches_jax_ragged(monkeypatch, D, n_planes, case):
+    rng = np.random.default_rng(D * 100 + n_planes)
+    n_local = 1 << 10
+    sm = _size_matrix(rng, D, n_local, case)
+    offs = _offsets(rng, sm, n_local)
+    if D == 1:
+        offs[:] = 0  # the 1-shard exchange is an identity of the whole shard
+    capacity = int(sm.sum(0).max()) + 37 if case != "overflow" else n_local // 2
+    planes = [rng.integers(0, 2**32, size=D * n_local, dtype=np.uint32)
+              for _ in range(n_planes)]
+    planes[0][::97] = PAD  # real all-ones words among the data
+    want = _jax_exchange(planes, offs, sm, capacity, monkeypatch)
+    before = rd.EXCHANGE.plain_calls
+    got, valid, counts = _port_exchange(planes, offs, sm, capacity)
+    assert rd.EXCHANGE.plain_calls - before == (D * n_planes if D > 1 else 0)
+    for g, w in zip(got, want[:n_planes]):
+        np.testing.assert_array_equal(g, w)  # pads included
+    np.testing.assert_array_equal(valid, want[n_planes])
+    np.testing.assert_array_equal(counts, want[n_planes + 1])
+    np.testing.assert_array_equal(counts, sm.sum(0))
+    if case == "overflow":
+        assert counts[2] > capacity
+
+
+def _layout_matrix(rng):
+    m = rng.integers(0, 3 * 2048, size=(8, 8))
+    m[0, 1], m[2, 3], m[4, 5], m[6, 7] = 0, 2048, 4096, 17
+    return torch.from_numpy(m)
+
+
+def test_layout_sender_receiver_symmetry(rng):
+    """Where sender s writes on receiver d is where d expects s: segments
+    tile each receiver's buffer in sender order, without gaps."""
+    sm = _layout_matrix(rng)
+    lay = rd.exchange_layout(sm, int(sm.sum(0).max()))
+    off = lay.recv_offsets.numpy()
+    for d in range(8):
+        assert off[0, d] == 0
+        for s in range(7):
+            assert off[s + 1, d] == off[s, d] + int(sm[s, d])
+    np.testing.assert_array_equal(lay.landed.numpy(), sm.numpy())
+    np.testing.assert_array_equal(lay.demand.numpy(), sm.numpy().sum(0))
+
+
+def test_layout_writes_stay_in_buffer(rng):
+    """Under overflow every landed segment ends inside the buffer, the
+    arrivals are min(demand, capacity) and the demand still signals."""
+    sm = _layout_matrix(rng)
+    sm[:, 2] = 20 * 2048
+    cap = int(_layout_matrix(np.random.default_rng(0)).sum(0).max())
+    lay = rd.exchange_layout(sm, cap)
+    off, landed = lay.recv_offsets.numpy(), lay.landed.numpy()
+    assert ((landed == 0) | (off + landed <= cap)).all()
+    assert (landed >= 0).all() and (landed <= sm.numpy()).all()
+    np.testing.assert_array_equal(landed.sum(0), np.minimum(sm.numpy().sum(0), cap))
+    assert lay.demand[2] == 8 * 20 * 2048 > cap
+
+
+def test_exchange_arrivals_and_pads(rng):
+    """The wrapper's arrival counts and buffers against a numpy oracle."""
+    D, n_local, cap = 8, 512, 300
+    sm = _size_matrix(rng, D, n_local, "overflow")
+    offs = _offsets(rng, sm, n_local)
+    planes = [[torch.from_numpy(rng.integers(0, 2**32, n_local, dtype=np.uint32))
+               for _ in range(2)] for _ in range(D)]
+    recv, demand, arrived = rd.remote_dma_exchange(
+        planes, [torch.from_numpy(o) for o in offs],
+        [torch.from_numpy(z) for z in sm], cap)
+    np.testing.assert_array_equal(demand.numpy(), sm.sum(0))
+    np.testing.assert_array_equal(arrived.numpy(),
+                                  np.tile(np.minimum(sm.sum(0), cap), (2, 1)))
+    for j in range(2):
+        want = np.full(D * cap, PAD, np.uint32)
+        for d in range(D):
+            seg = np.concatenate([planes[s][j].numpy()[offs[s, d]:offs[s, d] + sm[s, d]]
+                                  for s in range(D)])[:cap]
+            want[d * cap:d * cap + seg.size] = seg
+        np.testing.assert_array_equal(recv[j].numpy(), want)
+
+
+@pytest.mark.parametrize("bad", [torch.uint16, torch.int64, torch.int32])
+def test_non_u32_plane_raises_before_any_write(bad):
+    """Only u32 planes cross the exchange; anything else raises TypeError
+    before a buffer is allocated or a copy is made (the reference's
+    docstring promised a fallback its code never had)."""
+    D = 4
+    good = [torch.arange(64, dtype=torch.int32).view(torch.uint32)]
+    odd = [torch.zeros(64, dtype=bad)]
+    planes = [good + (odd if s == 3 else good) for s in range(D)]
+    sizes = [torch.full((D,), 16, dtype=torch.int64)] * D
+    offs = [torch.arange(0, 64, 16)] * D
+    before = rd.EXCHANGE.plain_calls
+    with pytest.raises(TypeError):
+        rd.remote_dma_exchange(planes, offs, sizes, 64)
+    assert rd.EXCHANGE.plain_calls == before
