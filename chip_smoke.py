@@ -42,6 +42,18 @@ Phases, each printing its own lines:
      those of each kernel's most-launched shape on the shuffle (B2-B5), of
      B6 at the stable run's exchange, and of B1 at 2^25 x 2 words.
 
+Every check prints the kernel's bound beside its time: the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s, or
+its operations over 67 T/s (the data sheet's float32 rate outside the
+tensor cores, standing in for 32-bit integer operations), whichever is
+longer; for the compare-exchange kernels a compare-exchange is one compare
+per key plane and two selects per plane.  No single PyTorch call computes
+any kernel's function (multi-plane lexicographic networks, a multi-level
+histogram with sortedness flags, a ragged exchange with pad fill and
+counters), so every ``library_ms`` is null.  After the sorts, ``Sorter.run``
+on the 2^25 u64 headline keys runs under the profiler (its B2 and B3
+totals), beside ``torch.sort`` of the same keys as int64 (a yardstick).
+
 Exits non-zero, printing no result, when CUDA is absent, when the package is
 not importable, or when any check fails.  Needs one card; uses no JAX.
 """
@@ -59,6 +71,8 @@ import numpy as np
 
 SEED = 20261016
 REPS = 5
+HBM = 3.35e12  # bytes/s, NVIDIA H100 SXM
+ALU = 67e12  # operations/s: float32 outside the tensor cores, for int32 too
 
 # (kernel name, source, the Pallas call it replaces)
 KERNEL_INFO = {
@@ -91,6 +105,30 @@ def cuda_ms(torch, fn) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def nbytes(ts) -> int:
+    if not isinstance(ts, (list, tuple)):
+        ts = [ts]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def ce_ops(name, dtypes, n, args) -> int:
+    """Operations of a compare-exchange launch: stages x n/2 pairs x (one
+    compare per key plane + two selects per plane)."""
+    if name == "bitonic_tail":
+        _, nk, levels, _ = args
+        stages = sum(s.bit_length() for _, s in levels)
+    elif name == "bitonic_span":
+        s_hi, s_lo, _, _, nk = args
+        stages = (2 * s_hi // s_lo).bit_length() - 1
+    elif name == "merge_stage":
+        _, nk = args
+        stages = 1
+    else:
+        block, nk = args
+        stages = block.bit_length() - 1
+    return stages * (n // 2) * (nk + 2 * len(dtypes))
 
 
 def plain_route(fm, fn):
@@ -166,8 +204,48 @@ def check_recorded(fs, fm, seen, planes_of, check):
                   f"{args}; {sum(c for _, c in sigs)} launches of this shape "
                   f"on the path",
                   lambda: kern(planes, n, *args), lambda: plain(planes, n, *args),
-                  main_shape=shape == top)
+                  main_shape=shape == top, ops=ce_ops(name, dtypes, n, args))
             del planes
+
+
+def sorter_headline(torch, P, x64, dev):
+    """``Sorter.run`` on the 2^25 u64 headline keys already on the card: its
+    kernels' device time under the profiler with the B2 and B3 totals, and
+    ``torch.sort`` of the same keys as int64 (sign bit flipped) beside it, a
+    yardstick the port never calls.  The sorted words must equal it."""
+    from torch.autograd import DeviceType
+
+    from rdst_tpu_torch import keys
+    from rdst_tpu_torch.sorter import Sorter
+
+    nk = keys.normalize(x64, device=dev)
+    sorter = Sorter()
+    out, _ = sorter.run(nk)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sorter.run(nk)
+        torch.cuda.synchronize()
+    tot = {"all": [0.0, 0], "tail_kernel": [0.0, 0], "span_kernel": [0.0, 0]}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        for k, acc in tot.items():
+            if k == "all" or k in e.key:
+                acc[0] += e.self_device_time_total / 1e3
+                acc[1] += e.count
+    run_ms = cuda_ms(torch, lambda: sorter.run(nk))
+    key = ((P.widen(nk.words[0]) << 32) | P.widen(nk.words[1])) ^ -(1 << 63)
+    ref = torch.sort(key).values
+    got = ((P.widen(out.words[0]) << 32) | P.widen(out.words[1])) ^ -(1 << 63)
+    if not torch.equal(got, ref):
+        raise AssertionError("Sorter.run 2^25 u64 differs from torch.sort")
+    sort_ms = cuda_ms(torch, lambda: torch.sort(key))
+    print(f"Sorter.run 2^25 u64 on the card: {run_ms:.3f} ms (CUDA events, median "
+          f"of {REPS}); device time over kernels {tot['all'][0]:.3f} ms; B2 "
+          f"{tot['tail_kernel'][0]:.3f} ms in {tot['tail_kernel'][1]} launches, B3 "
+          f"{tot['span_kernel'][0]:.3f} ms in {tot['span_kernel'][1]}; bit-exact vs "
+          f"torch.sort, whose time on the same keys as int64 is {sort_ms:.3f} ms")
 
 
 def distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32,
@@ -278,7 +356,8 @@ def distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32,
         got = check("remote_exchange", label,
                     lambda: flat(rd.remote_dma_exchange_cuda(src, offs, sizes, cap)),
                     lambda: flat(rd.remote_dma_exchange_plain(src, offs, sizes, cap)),
-                    main_shape=main_shape)
+                    main_shape=main_shape,
+                    moved=lambda g: 4 * int(torch.stack(sizes).sum()) + nbytes(g))
         demand = torch.stack(sizes).sum(0)
         if not (torch.equal(got[-2], demand)
                 and torch.equal(got[-1][0], torch.clamp(demand, max=cap))):
@@ -486,17 +565,24 @@ def main() -> int:
     # -- 2. kernels against their plain versions ------------------------------
     results = {name: {"max_abs_err": 0} for name in KERNEL_INFO}
 
-    def check(name, label, kernel_fn, plain_fn, main_shape=False):
-        """``name``: a kernel, or a tuple of the kernels a composite runs."""
+    def check(name, label, kernel_fn, plain_fn, main_shape=False, moved=None,
+              ops=0):
+        """``name``: a kernel, or a tuple of the kernels a composite runs.
+        ``moved``: bytes read and written, a function of the output
+        (default: every output plane and its input plane once each)."""
         got = kernel_fn()
         torch.cuda.synchronize()
         want = plain_fn()
         err = max_err(got, want)
         ms = cuda_ms(torch, kernel_fn)
         plain_ms = cuda_ms(torch, plain_fn)
+        moved = 2 * nbytes(got) if moved is None else moved(got)
+        bound = max(moved / HBM, ops / ALU) * 1e3
+        by = "bytes" if moved / HBM >= ops / ALU else "operations"
         names = name if isinstance(name, tuple) else (name,)
         print(f"{'+'.join(names)} [{label}]: max_abs_err={err} kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound:.4f} ms "
+              f"({moved} B, {ops} ops; {by}), kernel at {bound / ms:.1%} of it")
         if err != 0:
             raise AssertionError(f"{name} [{label}] disagrees with its plain "
                                  f"version (max_abs_err {err})")
@@ -504,39 +590,48 @@ def main() -> int:
             r = results[nm]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if main_shape:
-                r["ms"], r["plain_ms"] = ms, plain_ms
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
         return got
 
     n = 1 << 25
     # B1: two u32 planes (a u64 key), all 8 byte levels
     w = planes_u32(n, 2)
+    def hist_moved(words):
+        return lambda g: nbytes(words) + nbytes(g)
+
     check("multi_level_histogram", "2^25 x 2 words, uniform",
           lambda: H.histogram_cuda(w, 8), lambda: H.histogram_plain(w, 8),
-          main_shape=True)
+          main_shape=True, moved=hist_moved(w), ops=2 * n * 8)
     packed = torch.sort(torch.randint(0, 1 << 62, (n,), generator=gen,
                                       device=dev)).values
     ws = [P.narrow(packed >> 32, torch.uint32),
           P.narrow(packed & 0xFFFFFFFF, torch.uint32)]
     got = check("multi_level_histogram", "2^25 x 2 words, presorted",
                 lambda: H.histogram_cuda(ws, 8),
-                lambda: H.histogram_plain(ws, 8))
+                lambda: H.histogram_plain(ws, 8), moved=hist_moved(ws))
     res = H.unpack(got.cpu().numpy(), 8)
     if res.sorted_prefix != n or not res.level_sorted[7]:
         raise AssertionError("presorted input: prefix or top level unsorted")
     we = [P.full(n, 0x01020304, torch.uint32, dev)] * 2
     check("multi_level_histogram", "2^25 x 2 words, all equal",
-          lambda: H.histogram_cuda(we, 8), lambda: H.histogram_plain(we, 8))
+          lambda: H.histogram_cuda(we, 8), lambda: H.histogram_plain(we, 8),
+          moved=hist_moved(we))
     wr = [p[: n - 12345] for p in w]
     check("multi_level_histogram", "2^25-12345 x 2 words, ragged",
-          lambda: H.histogram_cuda(wr, 8), lambda: H.histogram_plain(wr, 8))
+          lambda: H.histogram_cuda(wr, 8), lambda: H.histogram_plain(wr, 8),
+          moved=hist_moved(wr))
     check("multi_level_histogram", "level_histogram (one level)",
           lambda: H.histogram_cuda([w[1]], 1, 2),
-          lambda: H.histogram_plain([w[1]], 1, 2))
+          lambda: H.histogram_plain([w[1]], 1, 2), moved=hist_moved([w[1]]))
 
-    # B2: the u64 sort's trip 1 (block 8192, rows of 4096, un-flip), a
-    # two-level trip 1, a single-level sweep, narrow planes, eight planes
+    # B2: the u64 sort's trip 1 (block 16384, rows of 4096: levels 13 and
+    # 14 with the un-flip), one level of it, a two-level trip 1, a
+    # single-level sweep, narrow planes, eight planes
     blk = fs.pick_blocks(2)[1]
     check("bitonic_tail", f"2^25 x 2, trip 1, block {blk}, un-flip",
+          lambda: fs.tail_cuda(w, n, blk, 2, [(13, 4096), (14, 8192)], 12),
+          lambda: fs.tail_plain(w, n, blk, 2, [(13, 4096), (14, 8192)], 12))
+    check("bitonic_tail", f"2^25 x 2, one level, block {blk}, un-flip",
           lambda: fs.tail_cuda(w, n, blk, 2, [(13, 4096)], 12),
           lambda: fs.tail_plain(w, n, blk, 2, [(13, 4096)], 12))
     check("bitonic_tail", "2^25 x 2, two levels, un-flip",
@@ -559,8 +654,10 @@ def main() -> int:
           lambda: fs.tail_plain(eight, 1 << 22, blk8, 3,
                                 [(20, blk8 // 2)], None))
 
-    # B3: the u64 sort's span trips at P = 64, 8 and 2, narrow and 8 planes
-    for s_hi, s_lo, two_r in [(1 << 24, 1 << 19, 1 << 25),
+    # B3: the u64 sort's span trips at P = 128, 64, 8 and 2, narrow and 8
+    # planes
+    for s_hi, s_lo, two_r in [(1 << 24, 1 << 18, 1 << 25),
+                              (1 << 24, 1 << 19, 1 << 25),
                               (1 << 18, 1 << 13, 1 << 25),
                               (1 << 15, 1 << 13, 1 << 16),
                               (1 << 13, 1 << 13, 1 << 14)]:
@@ -693,6 +790,7 @@ def main() -> int:
     dt = cuda_ms(torch, lambda: rt.radix_sort_unstable(x64))
     print(f"sort u64 2^25 warm: {dt:.2f} ms, {x64.size / dt * 1e3:,.0f} keys/s "
           f"(median of {REPS}, numpy in and out)")
+    sorter_headline(torch, P, x64, dev)
     del y64, ks, vs, yf, k32, v32, f64, order, folded, want, u
 
     # the low-memory Regions path at the real gate: 2^30 int64 keys (39 bits
@@ -790,8 +888,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
         })
+        print(f"kernel {name}: {r['ms']:.4f} ms at its main shape, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} "
+              f"of it; plain {r['plain_ms']:.4f} ms; {launches[name]} launches "
+              "on the paths")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -28,12 +28,24 @@ fused_min_piece = 1 << 20
 #: (``rdst_tpu/ops/pallas_sort.py`` ROW).  A parameter, as above.
 row = 1 << 12
 
-#: Shared memory one bitonic CTA may hold (bytes).  An H100 SM has 228 KB of
-#: shared memory and a block may use at most 227 KB; half of that, less the
-#: 1 KB the runtime reserves per block, keeps two CTAs resident per SM so one
-#: CTA's loads overlap the other's compare-exchange stages.  Replaces the
-#: v5e VMEM sizing of ``_pick_blocks`` (pallas_sort.py:98-118).
-bitonic_smem_bytes = (227 * 1024) // 2 - 1024
+#: Shared memory one B2/B3 CTA may hold (bytes): all 227 KB a block may
+#: have on an H100, so one CTA per SM.  It holds a staging tile of every
+#: plane, into which the next tile's copies land while the current one is
+#: compared in registers, and a one-plane u32 transpose buffer
+#: (``csrc/bitonic.cu``); with at most 512 threads of ``fused_sort.ELEMS``
+#: elements that sets ``fused_sort.pick_blocks``: 2^14 elements at 1-2
+#: planes, 2^13 at 3-4, 2^12 at 5-7, 2^11 at 8.  Measured against half of
+#: it less 1 KB (two CTAs per SM, blocks of 2^13 at 2 planes and 2^12 at
+#: 4-5) on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+#: (``scripts/torch_bitonic_ab.py --sizing``, medians of 5, two turns
+#: each): ``fused_sort`` of 2^25 u64 keys 12.113 / 12.137 ms against
+#: 12.377 / 12.390; with a u32 payload, stable (4 planes), 26.048 / 26.076
+#: against 27.779 / 27.817; the shuffle's 5-plane finish sort of 1.5 x 2^25
+#: rows 83.083 / 83.103 against 83.113 / 83.072 (the same blocks).  B5
+#: (``fused_merge``) takes half of it less the 1 KB the runtime reserves
+#: per block, so two of its CTAs fit an SM.  Replaces the v5e VMEM sizing
+#: of ``_pick_blocks`` (pallas_sort.py:98-118).
+bitonic_smem_bytes = 227 * 1024
 
 #: Presorted-input advantage (``rdst_tpu/config.py`` presorted_merge_min):
 #: a sorted prefix covering half the input is kept and only the suffix is

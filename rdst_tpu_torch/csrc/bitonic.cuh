@@ -1,5 +1,13 @@
-// Device helpers shared by the compare-exchange kernels: B2/B3 in bitonic.cu
-// and B5 in merge.cu.
+// Device helpers of the compare-exchange kernels.
+//
+// Planes, make_planes, load_plane, store_plane and ones_of serve B2 and B3
+// (bitonic.cu: the Pallas _tail_call and _span_call, rdst_tpu/ops/
+// pallas_sort.py:267 and :327) and B5 (merge.cu: the Pallas _pallas_tail,
+// pallas_merge.py:232).  lex_gt, stage, load_block and store_block are B5's
+// shared-memory stage loop: one pass over a block held in shared memory per
+// stride, a barrier after each.  B5 is bound by that loop (shared memory and
+// barriers), not by its one read and one write of every plane; B2 and B3 left
+// it for tiles held in registers (bitonic.cu says how).
 //
 //   - planes are u8, u16 or u32 in device memory and widen to u32 in registers
 //     and shared memory; they narrow again on store (exact: every value is
@@ -42,7 +50,7 @@ __device__ __forceinline__ void store_plane(void* p, int width, long long i,
   }
 }
 
-__device__ __forceinline__ uint32_t ones_of(int width) {
+__host__ __device__ __forceinline__ uint32_t ones_of(int width) {
   return width >= 4 ? 0xFFFFFFFFu : ((1u << (8 * width)) - 1u);
 }
 

@@ -22,9 +22,10 @@
 // 166, launched by _pallas_tail at :232): one CTA holds one aligned block of
 // every plane in shared memory and runs every stride block/2 .. 1 there.  The
 // TPU splits those into row strides and lane strides for its (rows, 128)
-// layout; here a stride is a stride, and the stages are B2's.  Bound: one read
-// and one write of every plane; the block is sized like B2's
-// (config.bitonic_smem_bytes) so that two CTAs fit an SM.
+// layout; here a stride is a stride, one pass over shared memory with a
+// barrier each (stage() in bitonic.cuh).  Bound: one read and one write of
+// every plane; the block takes half of config.bitonic_smem_bytes so that two
+// CTAs fit an SM.
 //
 // Each pair (B4) and each block (B5) belongs to one thread or one CTA, so
 // both kernels may run in place.

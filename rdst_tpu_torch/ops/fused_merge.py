@@ -15,7 +15,8 @@ stage and several kernels per pass; here:
                         block/2 .. 1 there.
 
 The block is :func:`pick_block`: the largest power of two whose planes,
-widened to 4 bytes, fit ``config.bitonic_smem_bytes`` (B2's sizing).  Both
+widened to 4 bytes, fit half of ``config.bitonic_smem_bytes`` less the 1 KB
+the runtime reserves per block, so two CTAs fit an SM.  Both
 kernels compare strictly (ties never swap), so their output depends only on
 the stage sequence, which is the stage loop's: kernels, plain versions, the
 Pallas kernels and the XLA loop agree bit for bit, riders included.
@@ -38,6 +39,7 @@ import torch
 
 from rdst_tpu_torch import _build
 from rdst_tpu_torch import _planes as P
+from rdst_tpu_torch import config
 from rdst_tpu_torch.ops import fused_sort as fs
 
 __all__ = [
@@ -60,10 +62,12 @@ MERGE_TAIL = _build.Kernel(
 
 
 def pick_block(n_planes: int) -> int:
-    """B5's shared-memory block (elements) for ``n_planes`` planes: B2's
-    (``fused_sort.pick_blocks``).  Replaces the v5e VMEM rule of
-    ``pallas_merge.pick_block``."""
-    return fs.pick_blocks(n_planes)[0]
+    """B5's shared-memory block (elements) for ``n_planes`` planes: the
+    largest power of two whose planes, widened to 4 bytes, fit half of
+    ``config.bitonic_smem_bytes`` less 1 KB (two CTAs per SM).  Replaces
+    the v5e VMEM rule of ``pallas_merge.pick_block``."""
+    cap = (config.bitonic_smem_bytes // 2 - 1024) // (4 * max(n_planes, 1))
+    return 1 << fs._log2(max(cap, 2 * fs.GRAIN))
 
 
 def _check_stage(planes, n, s, n_keys):
@@ -76,6 +80,13 @@ def _check_tail(planes, n, block, n_keys):
     fs._check_planes(planes, n, n_keys)
     if block < 2 or block & (block - 1) or n % block:
         raise ValueError(f"tail block {block} must be a power of two dividing {n}")
+
+
+def _check_smem(block, n_planes):
+    if block * n_planes * 4 > fs._SMEM_MAX:
+        raise ValueError(
+            f"block {block} x {n_planes} planes exceeds a CTA's shared memory"
+        )
 
 
 def _plain(planes, n_keys, strides):
@@ -118,7 +129,7 @@ def merge_stage_cuda(planes, n, s, n_keys, *, in_place=False):
 def merge_tail_cuda(planes, n, block, n_keys, *, in_place=False):
     """Launch B5 (``csrc/merge.cu``)."""
     _check_tail(planes, n, block, n_keys)
-    fs._check_smem(block, len(planes))
+    _check_smem(block, len(planes))
     dev, outs, args = _cuda_planes(planes, n, n_keys, in_place)
     MERGE_TAIL.launch(dev, *args, block, _build.stream_of(outs[0]))
     return outs

@@ -26,7 +26,10 @@ kernels.
 launch ``csrc/bitonic.cu``, CPU planes run :func:`tail_plain` /
 :func:`span_plain`, which run the same stage schedule as plain PyTorch.  A
 compare-exchange network's output depends only on its stage sequence, so
-kernel and plain version agree bit for bit, payloads included.
+kernel and plain version agree bit for bit, payloads included.  The kernels
+hold a tile in registers; :func:`_net_plan` turns a launch's stages into the
+steps the kernel runs (compare-exchanges between registers or lanes, and
+the moves between register layouts that the other strides need).
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from rdst_tpu_torch import config
 __all__ = [
     "fused_sort", "fused_sort_available", "pick_blocks", "tail_call",
     "span_call", "tail_plain", "span_plain", "tail_cuda", "span_cuda",
-    "TAIL", "SPAN", "MAX_PLANES", "GRAIN",
+    "TAIL", "SPAN", "MAX_PLANES", "GRAIN", "ELEMS", "elems_per_thread",
 ]
 
 #: Maximum next_pow2(n)/n for padding to the power of two; beyond it the
@@ -54,22 +57,28 @@ MAX_PLANES = 8
 #: worth of 16-byte loads of u32 (32 x 16 B = 128 elements), so span pieces
 #: coalesce.  Takes the place of the TPU's 128-lane rows.
 GRAIN = 128
-_MAX_LEVELS = 32  # kMaxLevels in csrc/bitonic.cu
+_MAX_LEVELS = 32  # levels of one tail launch: its plan stays within _MAX_STEPS
 _SMEM_MAX = 227 * 1024  # bytes of shared memory one CTA may use on sm_90
+#: Elements per thread and plane of the B2/B3 kernels, by plane count
+#: (kElems in csrc/bitonic.cu): at most 64 registers of data a thread.
+ELEMS = {1: 32, 2: 32, 3: 16, 4: 16, 5: 8, 6: 8, 7: 8, 8: 4}
+_SMALL_ELEMS = 2  # kSmallElems: blocks below 32 * ELEMS[k] elements
+_NET_THREADS = 512  # kNetThreads: most threads of a B2/B3 CTA
+_MAX_STEPS = 768  # kMaxSteps
+_FLIP, _REG, _LANE, _MOVE = 0, 1, 2, 3  # plan steps (csrc/bitonic.cu)
+_NO_DIR = 127  # kNoDir: a FLIP's unused second direction
 
 _PLANE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                ctypes.c_int, ctypes.c_longlong]
+_PLAN_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 TAIL = _build.Kernel(
-    "bitonic_tail",
-    "rdst_bitonic_tail",
-    _PLANE_ARGS + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "bitonic_tail", "rdst_bitonic_tail", _PLANE_ARGS + [ctypes.c_int] + _PLAN_ARGS,
 )
 SPAN = _build.Kernel(
     "bitonic_span",
     "rdst_bitonic_span",
-    _PLANE_ARGS + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p],
+    _PLANE_ARGS + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int] + _PLAN_ARGS,
 )
 
 
@@ -81,14 +90,25 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def pick_blocks(n_planes: int) -> tuple[int, int]:
-    """(small, big) shared-memory blocks (elements) for ``n_planes``.
+def elems_per_thread(n_planes: int, block: int) -> int:
+    """Elements of each plane one B2/B3 thread holds for ``block``: ELEMS,
+    or 2 for blocks too small to give a warp of threads at ELEMS."""
+    e = ELEMS[n_planes]
+    return e if block >= 32 * e else _SMALL_ELEMS
 
-    The largest power of two whose planes, widened to 4 bytes, fit
+
+def pick_blocks(n_planes: int) -> tuple[int, int]:
+    """(small, big) blocks (elements) of the B2/B3 kernels for ``n_planes``.
+
+    The largest power of two that one CTA holds: at most 512 threads of
+    ELEMS[n_planes] elements each, and a staging tile of every plane (u32 at
+    most) plus a one-plane u32 transpose buffer within
     ``config.bitonic_smem_bytes``.  On the TPU the multi-level trip-1 kernel
-    needed a smaller block than the single-level sweeps (scoped-VMEM
-    stack); a CTA has no such extra cost, so both are the same here."""
-    cap = config.bitonic_smem_bytes // (4 * max(n_planes, 1))
+    needed a smaller block than the single-level sweeps (scoped-VMEM stack);
+    a CTA has no such extra cost, so both are the same here."""
+    k = max(n_planes, 1)
+    cap = min(config.bitonic_smem_bytes // (4 * (k + 1)),
+              _NET_THREADS * ELEMS[min(k, MAX_PLANES)])
     big = 1 << _log2(max(cap, 2 * GRAIN))
     return big, big
 
@@ -213,11 +233,95 @@ def _plane_ptrs(planes, outs=None):
     return outs, ins_a, outs_a, widths
 
 
-def _check_smem(block, n_planes):
-    if block * n_planes * 4 > _SMEM_MAX:
+def _check_fit(planes, block):
+    """Raise unless ``block`` fits one B2/B3 CTA (csrc/bitonic.cu
+    ``launch``): at most _NET_THREADS threads, the staging tile and the
+    transpose buffer within a CTA's shared memory."""
+    k = len(planes)
+    threads = block // elems_per_thread(k, block)
+    smem = 4 * block + sum(-(-block * p.dtype.itemsize // 16) * 16 for p in planes)
+    if threads > _NET_THREADS or smem > _SMEM_MAX:
         raise ValueError(
-            f"block {block} x {n_planes} planes exceeds a CTA's shared memory"
+            f"block {block} x {k} planes exceeds a B2/B3 CTA "
+            f"({threads} threads, {smem} B of shared memory)"
         )
+
+
+def _net_plan(levels, block, n_planes, flip=None):
+    """The steps a B2/B3 kernel runs on a tile of ``block`` elements.
+
+    ``levels``: (direction, stage bits) pairs in order; ``flip``: the
+    un-flip's bit, or None.  A direction (or the un-flip's bit) is an
+    element bit of the tile (>= 0), or -1-b for bit b of the tile's run
+    index (B2: the tile, B3: the cell's a), the same for the whole tile.
+    Every stage runs ascending: a FLIP before and after each level
+    complements the keys of its descending runs, as the Pallas kernels do
+    (one FLIP with two directions where one level ends and the next begins).
+
+    Layout a puts the R = log2(E) register bits of a thread at element bits
+    [a, a + R); the thread index fills the other bits from the bottom, its
+    low five (lane) bits first.  A stage on a register bit compares
+    registers.  Any other stage first moves the tile to a layout that holds
+    it, the one whose register bits end at it (layout 0 below R); layouts 1-4
+    put lanes on bits that share banks, so the stages above the register
+    bits and below 5 shuffle across lanes instead, or move to such a layout
+    when they are not lane bits.  Returns (first layout, ops, bits, dirs)."""
+    e = elems_per_thread(n_planes, block)
+    L, R = _log2(block), _log2(e)
+    lanes = min(5, L - R)
+
+    def kind(j, a):
+        if a <= j < a + R:
+            return _REG
+        if R <= j < 5 and (j if j < a else j - R) < lanes:
+            return _LANE
+        return None
+
+    def pick(j):
+        if j < R:
+            return 0
+        if j >= 5:
+            return min(max(5, j - R + 1), L - R)
+        return j - R + 1
+
+    first = [b for _, bits in levels for b in bits]
+    a = a0 = pick(first[0]) if first else 0
+    steps = [] if flip is None else [(_FLIP, _NO_DIR, flip)]
+
+    def flip_by(d):  # two FLIPs in a row are one
+        if steps and steps[-1][0] == _FLIP and steps[-1][1] == _NO_DIR:
+            steps[-1] = (_FLIP, d, steps[-1][2])
+        else:
+            steps.append((_FLIP, _NO_DIR, d))
+
+    for d, bits in levels:
+        flip_by(d)
+        for j in bits:
+            k = kind(j, a)
+            if k is None:
+                a = pick(j)
+                steps.append((_MOVE, a, 0))
+                k = kind(j, a)
+            steps.append((k, j, 0))
+        flip_by(d)
+    if len(steps) > _MAX_STEPS:
+        raise ValueError(f"{len(steps)} steps exceed one B2/B3 launch")
+    ops, bits, dirs = (list(x) for x in zip(*steps)) if steps else ([], [], [])
+    return a0, ops, bits, dirs
+
+
+def _plan_args(block, n_planes, levels, flip=None):
+    """Elements per thread and the plan as C arrays for a kernel launch."""
+    a0, ops, bits, dirs = _net_plan(levels, block, n_planes, flip)
+    n = len(ops)
+    arr = ctypes.c_int8 * max(n, 1)
+    return [elems_per_thread(n_planes, block), arr(*ops), arr(*bits),
+            arr(*dirs), n, a0]
+
+
+def _dir_code(bit, log_block):
+    """A global index bit as a plan direction for tiles of 2^log_block."""
+    return bit if bit < log_block else -1 - (bit - log_block)
 
 
 def tail_cuda(planes, n, block, n_keys, levels, unflip_shift):
@@ -225,29 +329,35 @@ def tail_cuda(planes, n, block, n_keys, levels, unflip_shift):
     planes = [p.contiguous() for p in planes]
     _check_tail(planes, n, block, n_keys, levels)
     dev, _ = _build.check_cuda_planes(planes, P.UNSIGNED)
-    _check_smem(block, len(planes))
+    _check_fit(planes, block)
+    L = _log2(block)
+    net = [(_dir_code(log_2r, L), [_log2(s) for s in _strides(start)])
+           for log_2r, start in levels]
+    flip = None if unflip_shift is None else _dir_code(unflip_shift, L)
     outs, ins_a, outs_a, widths = _plane_ptrs(planes)
-    log_2r = (ctypes.c_int * _MAX_LEVELS)(*[l for l, _ in levels])
-    starts = (ctypes.c_int * _MAX_LEVELS)(*[s for _, s in levels])
     TAIL.launch(
-        dev, ins_a, outs_a, widths, len(planes), n_keys, n, block, log_2r,
-        starts, len(levels), -1 if unflip_shift is None else unflip_shift,
+        dev, ins_a, outs_a, widths, len(planes), n_keys, n, block,
+        *_plan_args(block, len(planes), net, flip),
         _build.stream_of(planes[0]),
     )
     return outs
 
 
 def span_cuda(planes, n, s_hi, s_lo, two_r, block, n_keys):
-    """Launch the span kernel of ``csrc/bitonic.cu``."""
+    """Launch the span kernel of ``csrc/bitonic.cu``: the cell's stages are
+    its piece bits, log2(block) - 1 down to log2(block / P)."""
     planes = [p.contiguous() for p in planes]
-    _span_geometry(n, s_hi, s_lo, two_r, block)
+    p_dim = _span_geometry(n, s_hi, s_lo, two_r, block)
     _check_planes(planes, n, n_keys)
     dev, _ = _build.check_cuda_planes(planes, P.UNSIGNED)
-    _check_smem(block, len(planes))
+    _check_fit(planes, block)
+    L = _log2(block)
+    net = [(-1 - _log2(two_r // (2 * s_hi)),
+            list(range(L - 1, L - 1 - _log2(p_dim), -1)))]
     outs, ins_a, outs_a, widths = _plane_ptrs(planes)
     SPAN.launch(
-        dev, ins_a, outs_a, widths, len(planes), n_keys, n, s_hi, s_lo,
-        block, _log2(two_r // (2 * s_hi)), _build.stream_of(planes[0]),
+        dev, ins_a, outs_a, widths, len(planes), n_keys, n, s_hi, s_lo, block,
+        *_plan_args(block, len(planes), net), _build.stream_of(planes[0]),
     )
     return outs
 

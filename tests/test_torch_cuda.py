@@ -63,38 +63,116 @@ def test_histogram_kernel(dev, n, n_words):
     assert res.sorted_prefix == n and res.level_sorted[3]
 
 
+U8, U16, U32 = torch.uint8, torch.uint16, torch.uint32
+
+
+def _every_level(block):
+    """Levels (l, 2^(l-1)) for l = 1 .. log2(block): every stride of the
+    tile, on each side of every layout boundary (registers, lanes, warps,
+    the moves through shared memory)."""
+    return [(lv, 1 << (lv - 1)) for lv in range(1, block.bit_length())]
+
+
 @pytest.mark.parametrize(
     "n,block,dtypes,n_keys,levels,unflip",
     [
-        (1 << 12, 256, [torch.uint32], 1, [(8, 128)], None),
-        (1 << 16, 1024, [torch.uint32, torch.uint32], 2,
-         [(8, 128), (9, 256), (10, 512)], 7),
-        (1 << 16, 16384, [torch.uint32], 1, [(13, 4096), (14, 8192)], 12),
-        (1 << 15, 4096, [torch.uint16, torch.uint32, torch.uint8], 2,
-         [(20, 2048)], None),
-        (1 << 15, 2048, [torch.uint32] * 8, 3, [(11, 1024)], 10),
+        (1 << 12, 256, [U32], 1, [(8, 128)], None),
+        (1 << 16, 1024, [U32, U32], 2, [(8, 128), (9, 256), (10, 512)], 7),
+        (1 << 16, 16384, [U32], 1, [(13, 4096), (14, 8192)], 12),
+        (1 << 15, 4096, [U16, U32, U8], 2, [(20, 2048)], None),
+        (1 << 15, 2048, [U32] * 8, 3, [(11, 1024)], 10),
+        # the headline's trip 1 and sweep at the 2-plane block, 512 tiles
+        # for 132 persistent CTAs
+        (1 << 23, 1 << 14, [U32] * 2, 2, [(13, 4096), (14, 8192)], 12),
+        (1 << 23, 1 << 14, [U32] * 2, 2, [(23, 8192)], None),
+        # every stride, one case per template instance (1-5 and 8 planes)
+        (1 << 20, 1 << 14, [U32], 1, _every_level(1 << 14), 0),
+        (1 << 20, 1 << 14, [U32] * 2, 1, _every_level(1 << 14), 9),
+        (1 << 20, 1 << 13, [U32] * 3, 2, _every_level(1 << 13), 5),
+        (1 << 20, 1 << 13, [U32] * 4, 3, _every_level(1 << 13), None),
+        (1 << 21, 1 << 12, [U32] * 5, 4, _every_level(1 << 12), 13),
+        (1 << 20, 1 << 11, [U32] * 8, 3, _every_level(1 << 11), None),
+        # the shuffle's finish-sort trip 1 at 5 planes
+        (1 << 21, 1 << 12, [U32] * 5, 4, [(12, 2048)], 11),
+        # mixed widths at 6 and 7 planes
+        (1 << 18, 1 << 12, [U8, U16, U32, U8, U16, U32], 4, _every_level(1 << 12), 6),
+        (1 << 16, 1 << 10, [U8] * 3 + [U16] * 2 + [U32] * 2, 7, _every_level(1 << 10), 2),
+        # blocks below 32 x ELEMS: 2 elements a thread, down to a part warp
+        (1 << 14, 512, [U32, U16], 2, _every_level(512), 4),
+        (1 << 10, 64, [U32], 1, _every_level(64), 1),
+        (256, 8, [U8, U32], 2, _every_level(8), 0),
     ],
 )
 def test_tail_kernel(dev, n, block, dtypes, n_keys, levels, unflip):
     pl = _planes(dev, n, dtypes, n + block, high=7)
+    before = fs.TAIL.launches
     _same(fs.tail_cuda(pl, n, block, n_keys, levels, unflip),
           fs.tail_plain(pl, n, block, n_keys, levels, unflip))
+    assert fs.TAIL.launches == before + 1
 
 
 @pytest.mark.parametrize(
     "n,s_hi,s_lo,two_r,block,dtypes,n_keys",
     [
-        (1 << 16, 1 << 12, 1 << 12, 1 << 13, 1 << 12, [torch.uint32] * 2, 2),
-        (1 << 16, 1 << 14, 1 << 8, 1 << 16, 1 << 13, [torch.uint32] * 2, 1),
-        (1 << 17, 1 << 15, 1 << 11, 1 << 18, 1 << 13,
-         [torch.uint16, torch.uint32, torch.uint8], 2),
-        (1 << 16, 1 << 12, 1 << 10, 1 << 14, 1 << 11, [torch.uint32] * 8, 4),
+        (1 << 16, 1 << 12, 1 << 12, 1 << 13, 1 << 12, [U32] * 2, 2),
+        (1 << 16, 1 << 14, 1 << 8, 1 << 16, 1 << 13, [U32] * 2, 1),
+        (1 << 17, 1 << 15, 1 << 11, 1 << 18, 1 << 13, [U16, U32, U8], 2),
+        (1 << 16, 1 << 12, 1 << 10, 1 << 14, 1 << 11, [U32] * 8, 4),
+        # the headline's span trips at the 2-plane block: P = 128 and 2
+        (1 << 23, 1 << 22, 1 << 16, 1 << 23, 1 << 14, [U32] * 2, 2),
+        (1 << 23, 1 << 13, 1 << 13, 1 << 15, 1 << 14, [U32] * 2, 2),
+        # the shuffle's 4- and 5-plane trips, 8 planes, 6 mixed planes
+        (1 << 22, 1 << 20, 1 << 16, 1 << 21, 1 << 13, [U32] * 4, 3),
+        (1 << 22, 1 << 20, 1 << 15, 1 << 22, 1 << 12, [U32] * 5, 4),
+        (1 << 20, 1 << 16, 1 << 11, 1 << 18, 1 << 11, [U32] * 8, 3),
+        (1 << 20, 1 << 15, 1 << 12, 1 << 17, 1 << 12, [U8, U32, U16, U32, U32, U8], 3),
+        # u8 pieces of 8 bytes: no 16-byte copies
+        (1 << 16, 1 << 9, 1 << 3, 1 << 12, 1 << 10, [U8, U32], 1),
     ],
 )
 def test_span_kernel(dev, n, s_hi, s_lo, two_r, block, dtypes, n_keys):
     pl = _planes(dev, n, dtypes, n + s_hi, high=7)
+    before = fs.SPAN.launches
     _same(fs.span_cuda(pl, n, s_hi, s_lo, two_r, block, n_keys),
           fs.span_plain(pl, n, s_hi, s_lo, two_r, block, n_keys))
+    assert fs.SPAN.launches == before + 1
+
+
+def test_bitonic_kernels_unaligned_planes(dev):
+    """Planes that start off a 16-byte boundary take the kernels' element
+    by element copies; the results are the same."""
+    n, block = 1 << 16, 1 << 13
+    base = _planes(dev, n + 4, [U32, U32, U16], 5, high=7)
+    pl = [p[1:n + 1] for p in base]
+    assert pl[0].data_ptr() % 16
+    _same(fs.tail_cuda(pl, n, block, 2, [(12, 2048), (13, 4096)], 11),
+          fs.tail_plain(pl, n, block, 2, [(12, 2048), (13, 4096)], 11))
+    _same(fs.span_cuda(pl, n, 1 << 14, 1 << 10, 1 << 15, block, 2),
+          fs.span_plain(pl, n, 1 << 14, 1 << 10, 1 << 15, block, 2))
+
+
+@pytest.mark.parametrize("stable", [False, True])
+def test_fused_sort_default_blocks(dev, stable):
+    """fused_sort at the default blocks (2^14 at 3 planes with a payload or
+    the index plane) and a length that takes the piece path."""
+    n = (1 << 21) + (1 << 19)
+    rng = np.random.default_rng(31 + stable)
+    keys = rng.integers(0, 2**32, size=(2, n), dtype=np.uint32)
+    keys[0] %= 50
+    pay = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+    out_k, out_p = fs.fused_sort([torch.from_numpy(k).to(dev) for k in keys],
+                                 [torch.from_numpy(pay).to(dev)], stable=stable)
+    order = np.lexsort(keys[::-1])
+    for i in range(2):
+        np.testing.assert_array_equal(out_k[i].cpu().numpy(), keys[i][order])
+    if stable:
+        np.testing.assert_array_equal(out_p[0].cpu().numpy(), pay[order])
+    else:
+        got = np.stack([out_k[0].cpu().numpy(), out_k[1].cpu().numpy(),
+                        out_p[0].cpu().numpy()])
+        want = np.stack([keys[0], keys[1], pay])
+        np.testing.assert_array_equal(got[:, np.lexsort(got[::-1])],
+                                      want[:, np.lexsort(want[::-1])])
 
 
 @pytest.mark.parametrize("n,stable", [(1 << 15, False), (1 << 15, True),

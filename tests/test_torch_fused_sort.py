@@ -231,11 +231,205 @@ def test_tiny_fallback():
 
 
 def test_pick_blocks_fit_shared_memory():
+    """The B2/B3 block is the largest power of two one CTA holds: at most
+    512 threads of ELEMS elements, and a u32 staging tile of every plane plus
+    a u32 transpose buffer in ``bitonic_smem_bytes``.  B5 keeps its two-CTA
+    sizing."""
+    from rdst_tpu_torch.ops import fused_merge as fm
+
+    cfg = fs.config
     for planes in range(1, fs.MAX_PLANES + 1):
         small, big = fs.pick_blocks(planes)
         assert small == big and big & (big - 1) == 0
-        assert big * planes * 4 <= fs.config.bitonic_smem_bytes
-        assert big * 2 * planes * 4 > fs.config.bitonic_smem_bytes
+        e = fs.ELEMS[planes]
+        assert big // e <= 512
+        assert big * 4 * (planes + 1) <= cfg.bitonic_smem_bytes
+        assert (2 * big // e > 512
+                or 2 * big * 4 * (planes + 1) > cfg.bitonic_smem_bytes)
+    assert [fs.pick_blocks(k)[0] for k in range(1, 9)] == [
+        1 << 14, 1 << 14, 1 << 13, 1 << 13, 1 << 12, 1 << 12, 1 << 12, 1 << 11]
+    assert [fm.pick_block(k) for k in range(1, 9)] == [
+        1 << 14, 1 << 13, 1 << 13, 1 << 12, 1 << 12, 1 << 12, 1 << 12, 1 << 11]
+
+
+def _trips(T, blk, row):
+    """(tail, span) launches of ``_core`` on a power-of-two length T with
+    small = big block ``blk``: trip 1, then per level above the block span
+    trips of at most log2(blk / GRAIN) strides each and one tail sweep."""
+    log_b, log_t = blk.bit_length() - 1, T.bit_length() - 1
+    max_span = max(1, (blk // fs.GRAIN).bit_length() - 1)
+    spans = sum(-(-(log_r - log_b + 1) // max_span) for log_r in range(log_b, log_t))
+    return 1 + (log_t - log_b), spans
+
+
+def test_core_trip_counts(monkeypatch):
+    """TAIL and SPAN plain calls of one sort at small n equal the trip count
+    of the block rule; at the 2^25 x 2 headline the same rule gives 12 tail
+    and 15 span trips with 2^14 blocks (13 and 18 with the 2^13 blocks of
+    two CTAs per SM)."""
+    assert fs.pick_blocks(2)[0] == 1 << 14
+    assert _trips(1 << 25, 1 << 14, 4096) == (12, 15)
+    assert _trips(1 << 25, 1 << 13, 4096) == (13, 18)
+    monkeypatch.setattr(fs.config, "bitonic_smem_bytes", 18432)  # 1024 at 2 planes
+    blk = fs.pick_blocks(2)[0]
+    assert blk == 1024
+    rng = np.random.default_rng(41)
+    n = 1 << 14
+    keys = rng.integers(0, 2**32, size=(2, n), dtype=np.uint32)
+    before = fs.TAIL.plain_calls, fs.SPAN.plain_calls
+    out_k, _ = _sort(keys, [])
+    got = fs.TAIL.plain_calls - before[0], fs.SPAN.plain_calls - before[1]
+    assert got == _trips(n, blk, 4096) == (5, 5)
+    _check_unstable(keys, np.zeros((0, n), np.uint32), out_k, [])
+
+
+# -- the plan a B2/B3 launch runs, on a register-level model of the kernel ----
+
+
+def _lex_gt(a, b, n_keys):
+    r = np.zeros(a[0].shape, bool)
+    for k in range(n_keys - 1, -1, -1):
+        r = np.where(a[k] != b[k], a[k] > b[k], r)
+    return r
+
+
+def _model(planes, block, n_keys, plan, tile_index, tile_u, n_tiles):
+    """Run ``plan`` as csrc/bitonic.cu does, thread by thread and register by
+    register: reg i of thread tid holds element
+    ((tid >> a) << (a + R)) | (i << a) | (tid & (2^a - 1)) in layout a; a REG
+    step compares two registers of a thread, a LANE step a register with the
+    partner lane's (both ascending), a MOVE step goes through a transpose
+    buffer, a FLIP complements the key planes where exactly one of its
+    (one or two) direction bits is set."""
+    a0, ops, bits, dirs = plan
+    k = len(planes)
+    E = fs.elems_per_thread(k, block)
+    R, L = E.bit_length() - 1, block.bit_length() - 1
+    T = block // E
+    tid = np.arange(T)[:, None]
+    reg = np.arange(E)[None, :]
+    ones = [int(np.iinfo(p.dtype).max) if j < n_keys else 0 for j, p in enumerate(planes)]
+    out = [np.empty_like(p) for p in planes]
+
+    def elems(a):
+        return ((tid >> a) << (a + R)) | (reg << a) | (tid & ((1 << a) - 1))
+
+    for t in range(n_tiles):
+        g = tile_index(t)
+        u = tile_u(t)
+        a = a0
+        e = elems(a)
+        assert sorted(e.ravel()) == list(range(block))
+        v = [p[g].astype(np.int64)[e] for p in planes]
+        for op, bit, d in zip(ops, bits, dirs):
+            if op == fs._MOVE:
+                a = bit
+                buf = [np.empty(block, np.int64) for _ in planes]
+                for b, x in zip(buf, v):
+                    b[e] = x
+                e = elems(a)
+                v = [b[e] for b in buf]
+            elif op == fs._REG:  # ascending: swap where lo > hi
+                rb = bit - a
+                assert 0 <= rb < R
+                lo = [i for i in range(E) if not (i >> rb) & 1]
+                hi = [i | (1 << rb) for i in lo]
+                x = [w[:, lo] for w in v]
+                y = [w[:, hi] for w in v]
+                swap = _lex_gt(x, y, n_keys)
+                for w, xi, yi in zip(v, x, y):
+                    w[:, lo] = np.where(swap, yi, xi)
+                    w[:, hi] = np.where(swap, xi, yi)
+            elif op == fs._LANE:
+                tb = bit if bit < a else bit - R
+                assert tb < min(5, L - R)  # a lane of the same warp
+                partner = (tid ^ (1 << tb))[:, 0]
+                is_hi = ((tid >> tb) & 1) == 1
+                y = [w[partner] for w in v]
+                lo = [np.where(is_hi, b, c) for b, c in zip(y, v)]
+                hi = [np.where(is_hi, c, b) for b, c in zip(y, v)]
+                swap = _lex_gt(lo, hi, n_keys)
+                v = [np.where(swap, b, c) for b, c in zip(y, v)]
+            else:
+                assert op == fs._FLIP
+                f = np.zeros(e.shape, bool)
+                for dd in [d] + ([] if bit == fs._NO_DIR else [bit]):
+                    if dd < 0:
+                        f ^= bool((u >> (-dd - 1)) & 1)
+                    else:
+                        f ^= ((e >> dd) & 1) == 1
+                v = [np.where(f, w ^ o, w) for w, o in zip(v, ones)]
+        for o, w in zip(out, v):
+            o[g[e]] = w.astype(o.dtype)
+    return out
+
+
+@pytest.mark.parametrize(
+    "n,block,dtypes,n_keys,levels,unflip",
+    [
+        (1 << 15, 1 << 14, [np.uint32] * 2, 2, [(13, 4096), (14, 8192)], 12),
+        (1 << 15, 1 << 14, [np.uint32] * 2, 2, [(21, 8192)], None),
+        (1 << 14, 1 << 12, [np.uint32] * 5, 3, [(11, 1024), (12, 2048)], 10),
+        (1 << 13, 1 << 11, [np.uint16, np.uint32, np.uint8] + [np.uint32] * 5, 4,
+         [(8, 128), (9, 256), (10, 512), (11, 1024)], 7),
+        (1 << 12, 1 << 10, [np.uint8, np.uint16], 2, [(5, 16), (6, 32), (7, 64)], 4),
+        (1 << 10, 1 << 8, [np.uint32] * 3, 1, [(9, 128)], None),
+        (64, 8, [np.uint32], 1, [(2, 2), (3, 4)], 1),
+    ],
+)
+def test_tail_plan_on_kernel_model(n, block, dtypes, n_keys, levels, unflip):
+    """B2's plan on the register-level model equals ``tail_plain``."""
+    rng = np.random.default_rng(n + block + len(dtypes))
+    planes = _planes(rng, n, dtypes)
+    L = block.bit_length() - 1
+    net = [(fs._dir_code(l2r, L), [s.bit_length() - 1 for s in fs._strides(start)])
+           for l2r, start in levels]
+    flip = None if unflip is None else fs._dir_code(unflip, L)
+    plan = fs._net_plan(net, block, len(planes), flip)
+    assert [b for o, b in zip(plan[1], plan[2]) if o in (fs._REG, fs._LANE)] == [
+        j for _, bits in net for j in bits]
+    got = _model(planes, block, n_keys, plan,
+                 lambda t: t * block + np.arange(block), lambda t: t, n // block)
+    want = fs.tail_plain(_t(planes), n, block, n_keys, levels, unflip)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+@pytest.mark.parametrize(
+    "n,s_hi,s_lo,two_r,block,dtypes,n_keys",
+    [
+        (1 << 17, 1 << 15, 1 << 9, 1 << 17, 1 << 14, [np.uint32] * 2, 2),
+        (1 << 16, 1 << 13, 1 << 7, 1 << 14, 1 << 14, [np.uint32] * 2, 2),
+        (1 << 16, 1 << 13, 1 << 8, 1 << 15, 1 << 12, [np.uint32] * 5, 4),
+        (1 << 15, 1 << 10, 1 << 10, 1 << 13, 1 << 11,
+         [np.uint8, np.uint32, np.uint16, np.uint32, np.uint32, np.uint32], 3),
+        (1 << 12, 1 << 9, 1 << 7, 1 << 12, 1 << 9, [np.uint32], 1),
+    ],
+)
+def test_span_plan_on_kernel_model(n, s_hi, s_lo, two_r, block, dtypes, n_keys):
+    """B3's plan and cell geometry on the register-level model equal
+    ``span_plain``: tile t is cell (a, b) = (t >> log2(s_lo / w), the rest),
+    element e at a * 2 s_hi + b * w + (e >> log2 w) * s_lo + (e & (w - 1))."""
+    rng = np.random.default_rng(n + s_hi + s_lo + len(dtypes))
+    planes = _planes(rng, n, dtypes)
+    p_dim = 2 * s_hi // s_lo
+    w = block // p_dim
+    wc = s_lo // w
+    L = block.bit_length() - 1
+    desc = -1 - ((two_r // (2 * s_hi)).bit_length() - 1)
+    net = [(desc, list(range(L - 1, L - 1 - (p_dim.bit_length() - 1), -1)))]
+    plan = fs._net_plan(net, block, len(planes))
+    e = np.arange(block)
+
+    def index(t):
+        base = (t // wc) * 2 * s_hi + (t % wc) * w
+        return base + (e // w) * s_lo + e % w
+
+    got = _model(planes, block, n_keys, plan, index, lambda t: t // wc,
+                 n // (2 * s_hi) * wc)
+    want = fs.span_plain(_t(planes), n, s_hi, s_lo, two_r, block, n_keys)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
 
 
 # -- the plain B2/B3 against the Pallas kernels, bit for bit ------------------

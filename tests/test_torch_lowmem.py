@@ -33,7 +33,7 @@ N = 5000  # not a multiple of 4 powers of two: the last chunk is padded
 def _kernels_at_small_n(monkeypatch):
     monkeypatch.setattr(config, "fused_min_elems", 1024)
     monkeypatch.setattr(config, "fused_min_piece", 512)
-    monkeypatch.setattr(config, "bitonic_smem_bytes", 8192)
+    monkeypatch.setattr(config, "bitonic_smem_bytes", 18432)
     monkeypatch.setattr(tmerge, "_FUSED_MIN", 1024)
 
 

@@ -33,7 +33,7 @@ def _small_blocks(monkeypatch):
     monkeypatch.setattr(pm, "pick_block", lambda n_planes: 1024)
     monkeypatch.setattr(pm, "CHUNK", 512)
     # port blocks: 2048 elements at 1 plane, 1024 at 2, 512 at 3-4
-    monkeypatch.setattr(config, "bitonic_smem_bytes", 8192)
+    monkeypatch.setattr(config, "bitonic_smem_bytes", 18432)
 
 
 @pytest.fixture

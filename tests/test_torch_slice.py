@@ -33,7 +33,7 @@ def _fused_at_small_n(monkeypatch):
     monkeypatch.setattr(config, "fused_min_elems", 2048)
     monkeypatch.setattr(config, "fused_min_piece", 1024)
     # blocks of 512-2048 elements, so span trips run at these sizes too
-    monkeypatch.setattr(config, "bitonic_smem_bytes", 8192)
+    monkeypatch.setattr(config, "bitonic_smem_bytes", 18432)
 
 
 def _bits(a):
