@@ -9,9 +9,10 @@ Phases, each printing its own lines:
   1. environment: the card as nvidia-smi names it, and the kernel build;
   2. every kernel of the sort path against its plain PyTorch version on the
      card, at the shapes the single-card paths give it, bit for bit, with
-     times from CUDA events (median of a few runs): B1-B3, and the merge
-     kernels B4/B5 at the chunked path's merge shape (2^25 x 4 planes) and
-     others;
+     times from CUDA events (median of a few runs): B1-B3 (with
+     ``torch.bincount`` timed beside B1's one-level histogram, a yardstick
+     the port never calls), and the merge kernels B4/B5 at the chunked
+     path's merge shape (2^25 x 4 planes) and others, B5 in place too;
   3. the paths end to end through the public API, each driven with every
      launch count set to 0 just before it and read just after, each sorted
      bit-equal to numpy or to torch.sort, each printing its plan trace, time
@@ -32,12 +33,13 @@ Phases, each printing its own lines:
          2^27-row dataset under a 2^28 sort's partition; each bit-exact
          against torch.sort on the card, with its balance (max count over
          the fair share); between them, the exchange kernel B6 against its
-         plain version at the sizes the stable run sent (with the time of its
-         launches alone, also at even aligned sizes, its kernel's device
-         time and the host's time to enqueue it), and on a random
-         size matrix with empty segments and one overflowing receiver; and
-         B2/B3 at every shape the stable run launched them with, B4/B5 at
-         the overlapped run's merge shapes;
+         plain version, pads, demand and arrivals included, with its
+         launches per call, at the sizes the stable run sent (with the time
+         of its launch alone, its kernel's device time and the host's time
+         to enqueue it), at even aligned sizes, and on a random size matrix
+         with empty segments and one overflowing receiver; and B2/B3 at
+         every shape the stable run launched them with, B4/B5 at the
+         overlapped run's merge shapes;
   4. one JSON line of the kernels, then the result line.  Its times are
      those of each kernel's most-launched shape on the shuffle (B2-B5), of
      B6 at the stable run's exchange, and of B1 at 2^25 x 2 words.
@@ -48,9 +50,11 @@ its operations over 67 T/s (the data sheet's float32 rate outside the
 tensor cores, standing in for 32-bit integer operations), whichever is
 longer; for the compare-exchange kernels a compare-exchange is one compare
 per key plane and two selects per plane.  No single PyTorch call computes
-any kernel's function (multi-plane lexicographic networks, a multi-level
-histogram with sortedness flags, a ragged exchange with pad fill and
-counters), so every ``library_ms`` is null.  After the sorts, ``Sorter.run``
+the function of any kernel at its main shape (multi-plane lexicographic
+networks, an eight-level histogram with sortedness flags, a ragged exchange
+with pad fill and counters), so every ``library_ms`` is null; B1's
+one-level histogram, which ``torch.bincount`` does compute, is printed on
+its own line.  After the sorts, ``Sorter.run``
 on the 2^25 u64 headline keys runs under the profiler (its B2 and B3
 totals), beside ``torch.sort`` of the same keys as int64 (a yardstick).
 
@@ -85,7 +89,7 @@ KERNEL_INFO = {
     "merge_stage": (
         "rdst_tpu_torch/csrc/merge.cu", "rdst_tpu/ops/pallas_merge.py:208"),
     "merge_tail": (
-        "rdst_tpu_torch/csrc/merge.cu", "rdst_tpu/ops/pallas_merge.py:232"),
+        "rdst_tpu_torch/csrc/bitonic.cu", "rdst_tpu/ops/pallas_merge.py:232"),
     "remote_exchange": (
         "rdst_tpu_torch/csrc/exchange.cu", "rdst_tpu/parallel/remote_dma.py:225"),
 }
@@ -350,27 +354,41 @@ def distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32,
     offs, sizes, cap = recorded[0]
     src = [planes_u32(nl, 1) for _ in range(D)]
 
+    def b6_moved(sz, cap):
+        """Each landed word read once, each receive word written once."""
+        landed = int(rd.exchange_layout(sz, cap).landed.sum())
+        return 4 * landed, 4 * (landed + D * cap)
+
     def b6_check(label, offs, sizes, cap, main_shape=False):
         """Receive planes, demand and arrival counters, compared as one
-        flat list."""
+        flat list; the launches of one call counted."""
+        before = rd.EXCHANGE.launches
+        rd.remote_dma_exchange_cuda(src, offs, sizes, cap)
+        per_call = rd.EXCHANGE.launches - before
+        if per_call != 1:
+            raise AssertionError(f"B6 [{label}]: {per_call} launches in one call")
         got = check("remote_exchange", label,
                     lambda: flat(rd.remote_dma_exchange_cuda(src, offs, sizes, cap)),
                     lambda: flat(rd.remote_dma_exchange_plain(src, offs, sizes, cap)),
                     main_shape=main_shape,
-                    moved=lambda g: 4 * int(torch.stack(sizes).sum()) + nbytes(g))
+                    moved=lambda g: b6_moved(torch.stack(sizes), cap)[0] + nbytes(g))
         demand = torch.stack(sizes).sum(0)
         if not (torch.equal(got[-2], demand)
                 and torch.equal(got[-1][0], torch.clamp(demand, max=cap))):
             raise AssertionError(f"B6 [{label}]: arrivals differ from min(demand, capacity)")
-        print(f"remote_exchange [{label}]: demand {demand.tolist()}, capacity "
-              f"{cap}, arrivals {got[-1][0].tolist()}")
+        print(f"remote_exchange [{label}]: {per_call} launch per call; demand "
+              f"{demand.tolist()}, capacity {cap}, arrivals {got[-1][0].tolist()}")
 
     b6_check("8 x 8, 2^25 per sender, the 2^28 shuffle's sizes", offs, sizes,
              cap, main_shape=True)
-    fill_ms = cuda_ms(torch, lambda: P.full(D * cap, 0xFFFFFFFF, torch.uint32, dev))
-    print(f"remote_exchange: the pad fill of the receive buffers alone "
-          f"{fill_ms:.4f} ms ({D * cap * 4} B)")
-    # where the wrapper's time goes: the D launches alone on buffers made
+    # every segment 2^22 rows, so every copy starts on a 16 MiB boundary:
+    # the shuffle's segments start anywhere
+    seg = nl // D
+    even_offs = [torch.arange(D, device=dev) * seg] * D
+    even = [torch.full((D,), seg, dtype=torch.int64, device=dev)] * D
+    b6_check(f"8 x 8, even sizes of {seg} rows (aligned)", even_offs, even, cap)
+
+    # where the wrapper's time goes: the launch alone on buffers made
     # beforehand (CUDA events), the kernel's device time in the profiler,
     # and the host's time to enqueue the whole call (no synchronize in it)
     def call():
@@ -378,23 +396,19 @@ def distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32,
 
     def launches_alone(offs, sizes, label):
         so, sz = torch.stack(offs), torch.stack(sizes)
-        ro = rd.exchange_layout(sz, cap).recv_offsets
-        recv = [P.full(D * cap, rd.PAD_WORD, torch.uint32, dev)]
+        recv = [torch.empty(D * cap, dtype=torch.uint32, device=dev)]
         arrived = torch.zeros((1, D), dtype=torch.int64, device=dev)
-        ms = cuda_ms(torch, lambda: rd.launch_all(src, so, sz, ro, recv, arrived, cap))
-        moved = 2 * 4 * int(sz.sum())
-        print(f"remote_exchange: the {D} launches alone, {label}: {ms:.4f} ms "
-              f"({moved} B read + written, {moved / ms / 1e9:.4f} TB/s; CUDA "
-              f"events, median of {REPS})")
+        ms = cuda_ms(torch, lambda: rd.launch_all(src, so, sz, recv, arrived, cap))
+        landed, moved = b6_moved(sz, cap)
+        print(f"remote_exchange: the launch alone, {label}: {ms:.4f} ms "
+              f"({moved} B: {landed} read, {moved - landed} written (pad "
+              f"included), {moved / ms / 1e9:.4f} TB/s; counting the landed rows "
+              f"read and written only, {2 * landed / ms / 1e9:.4f} TB/s; "
+              f"CUDA events, median of {REPS})")
         return moved
 
     moved = launches_alone(offs, sizes, "the shuffle's sizes")
-    # every segment 2^22 rows, so every copy starts on a 16 MiB boundary:
-    # the shuffle's segments start anywhere
-    seg = nl // D
-    even = [torch.full((D,), seg, dtype=torch.int64, device=dev)] * D
-    launches_alone([torch.arange(D, device=dev) * seg] * D, even,
-                   f"even sizes of {seg} rows (aligned)")
+    launches_alone(even_offs, even, f"even sizes of {seg} rows (aligned)")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(REPS):
@@ -623,6 +637,18 @@ def main() -> int:
     check("multi_level_histogram", "level_histogram (one level)",
           lambda: H.histogram_cuda([w[1]], 1, 2),
           lambda: H.histogram_plain([w[1]], 1, 2), moved=hist_moved([w[1]]))
+    # B1' against torch.bincount of the same level's byte plane, made
+    # outside the timed region: a yardstick the port never calls
+    byte_plane = (P.widen(w[1]) >> 16) & 0xFF
+    lib = torch.bincount(byte_plane, minlength=256)
+    if not torch.equal(H.level_histogram([w[1]], 2), lib):
+        raise AssertionError("level_histogram differs from torch.bincount")
+    lvl_ms = cuda_ms(torch, lambda: H.level_histogram([w[1]], 2))
+    lib_ms = cuda_ms(torch, lambda: torch.bincount(byte_plane, minlength=256))
+    print(f"level_histogram (B1') 2^25 x 1 word, level 2: kernel {lvl_ms:.4f} ms; "
+          f"torch.bincount of the byte plane {lib_ms:.4f} ms (library yardstick, "
+          f"equal counts); kernel / library {lvl_ms / lib_ms:.3f}")
+    del byte_plane, lib
 
     # B2: the u64 sort's trip 1 (block 16384, rows of 4096: levels 13 and
     # 14 with the un-flip), one level of it, a two-level trip 1, a
@@ -687,10 +713,17 @@ def main() -> int:
         check("merge_stage", f"2^25 x 4, stride 2^{s_.bit_length() - 1}",
               lambda: fm.merge_stage_cuda(z4, n, s_, 3),
               lambda: fm.merge_stage_plain(z4, n, s_, 3))
-    check("merge_tail", f"2^25 x 4, block {blk4}",
-          lambda: fm.merge_tail_cuda(z4, n, blk4, 3),
-          lambda: fm.merge_tail_plain(z4, n, blk4, 3))
-    del z4
+    want4 = check("merge_tail", f"2^25 x 4, block {blk4}",
+                  lambda: fm.merge_tail_cuda(z4, n, blk4, 3),
+                  lambda: fm.merge_tail_plain(z4, n, blk4, 3))
+    own = [p.clone() for p in z4]
+    out = fm.merge_tail_cuda(own, n, blk4, 3, in_place=True)
+    torch.cuda.synchronize()
+    if max_err(own, want4) or any(o.data_ptr() != p.data_ptr() for o, p in zip(out, own)):
+        raise AssertionError("merge_tail in place differs from its plain version")
+    print(f"merge_tail [2^25 x 4, block {blk4}, in place]: max_abs_err=0, written "
+          "into its input planes")
+    del z4, want4, own, out
     m24 = 1 << 24
     narrow = planes_of(m24, [torch.uint16, torch.uint32, torch.uint8], 7)
     blk3 = fm.pick_block(3)

@@ -42,9 +42,8 @@ row = 1 << 12
 #: 12.377 / 12.390; with a u32 payload, stable (4 planes), 26.048 / 26.076
 #: against 27.779 / 27.817; the shuffle's 5-plane finish sort of 1.5 x 2^25
 #: rows 83.083 / 83.103 against 83.113 / 83.072 (the same blocks).  B5
-#: (``fused_merge``) takes half of it less the 1 KB the runtime reserves
-#: per block, so two of its CTAs fit an SM.  Replaces the v5e VMEM sizing
-#: of ``_pick_blocks`` (pallas_sort.py:98-118).
+#: (``fused_merge.pick_block``) runs on B2's kernel and takes B2's block.
+#: Replaces the v5e VMEM sizing of ``_pick_blocks`` (pallas_sort.py:98-118).
 bitonic_smem_bytes = 227 * 1024
 
 #: Presorted-input advantage (``rdst_tpu/config.py`` presorted_merge_min):

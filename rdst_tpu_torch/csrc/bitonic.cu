@@ -58,6 +58,13 @@
 // a compare is strict lexicographic over the first n_keys planes, so ties
 // never swap, all planes move together and the output is bit for bit that
 // of tail_plain / span_plain.
+//
+// B5, the merge tail of the fused merge (the Pallas _pallas_tail, rdst_tpu/
+// ops/pallas_merge.py:232), is tail_kernel on a plan of one level with no
+// FLIP: strides block/2 .. 1, ascending on every tile (fused_merge.
+// merge_tail_cuda).  It runs in place (outs == ins): a tile is read and
+// written by one CTA, the next tile's copies never touch the current one,
+// and no plane pointer is __restrict__.  Nothing here changed for it.
 #include "bitonic.cuh"
 
 namespace {

@@ -1,17 +1,14 @@
 // Device helpers of the compare-exchange kernels.
 //
-// Planes, make_planes, load_plane, store_plane and ones_of serve B2 and B3
-// (bitonic.cu: the Pallas _tail_call and _span_call, rdst_tpu/ops/
-// pallas_sort.py:267 and :327) and B5 (merge.cu: the Pallas _pallas_tail,
-// pallas_merge.py:232).  lex_gt, stage, load_block and store_block are B5's
-// shared-memory stage loop: one pass over a block held in shared memory per
-// stride, a barrier after each.  B5 is bound by that loop (shared memory and
-// barriers), not by its one read and one write of every plane; B2 and B3 left
-// it for tiles held in registers (bitonic.cu says how).
+// Planes, make_planes, load_plane, store_plane and ones_of serve B2, B3 and
+// B5 (bitonic.cu: the Pallas _tail_call and _span_call, rdst_tpu/ops/
+// pallas_sort.py:267 and :327, and _pallas_tail, pallas_merge.py:232, which
+// runs as B2's kernel on a plan with no direction) and B4 (merge.cu: the
+// Pallas _pallas_stage, pallas_merge.py:208).
 //
-//   - planes are u8, u16 or u32 in device memory and widen to u32 in registers
-//     and shared memory; they narrow again on store (exact: every value is
-//     back in its own domain once a kernel is done);
+//   - planes are u8, u16 or u32 in device memory and widen to u32 in
+//     registers; they narrow again on store (exact: every value is back in
+//     its own domain once a kernel is done);
 //   - compares are strict lexicographic over the first n_keys planes, so ties
 //     never swap and all planes move together.
 #pragma once
@@ -22,7 +19,6 @@
 namespace {
 
 constexpr int kMaxPlanes = 8;
-constexpr int kThreads = 512;
 
 struct Planes {
   const void* in[kMaxPlanes];
@@ -52,59 +48,6 @@ __device__ __forceinline__ void store_plane(void* p, int width, long long i,
 
 __host__ __device__ __forceinline__ uint32_t ones_of(int width) {
   return width >= 4 ? 0xFFFFFFFFu : ((1u << (8 * width)) - 1u);
-}
-
-// sm holds n_planes rows of len u32: element e of plane p is sm[p * len + e].
-__device__ __forceinline__ bool lex_gt(const uint32_t* sm, int len, int n_keys,
-                                       int a, int b) {
-  for (int k = 0; k < n_keys; ++k) {
-    const uint32_t x = sm[k * len + a];
-    const uint32_t y = sm[k * len + b];
-    if (x != y) return x > y;
-  }
-  return false;
-}
-
-// One compare-exchange stage at distance s (a power of two) over the len
-// shared elements: pair t is (lo, lo + s), lo = 2s * (t / s) + t % s.  A pair
-// where desc_of(lo) holds swaps when hi > lo (a descending run).
-template <typename DescOf>
-__device__ __forceinline__ void stage(uint32_t* sm, int len, const Planes& P,
-                                      int s, DescOf desc_of) {
-  for (int t = threadIdx.x; t < len / 2; t += blockDim.x) {
-    const int lo = ((t & ~(s - 1)) << 1) | (t & (s - 1));
-    const int hi = lo + s;
-    const bool swap = desc_of(lo) ? lex_gt(sm, len, P.n_keys, hi, lo)
-                                  : lex_gt(sm, len, P.n_keys, lo, hi);
-    if (swap) {
-      for (int p = 0; p < P.n_planes; ++p) {
-        const uint32_t a = sm[p * len + lo];
-        sm[p * len + lo] = sm[p * len + hi];
-        sm[p * len + hi] = a;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Loads one aligned block of every plane into shared memory (widened).
-__device__ __forceinline__ void load_block(uint32_t* sm, const Planes& P,
-                                           long long g0, int block) {
-  for (int p = 0; p < P.n_planes; ++p) {
-    for (int e = threadIdx.x; e < block; e += blockDim.x) {
-      sm[p * block + e] = load_plane(P.in[p], P.width[p], g0 + e);
-    }
-  }
-}
-
-__device__ __forceinline__ void store_block(const uint32_t* sm,
-                                            const Planes& P, long long g0,
-                                            int block) {
-  for (int p = 0; p < P.n_planes; ++p) {
-    for (int e = threadIdx.x; e < block; e += blockDim.x) {
-      store_plane(P.out[p], P.width[p], g0 + e, sm[p * block + e]);
-    }
-  }
 }
 
 inline bool pow2(long long x) { return x > 0 && (x & (x - 1)) == 0; }

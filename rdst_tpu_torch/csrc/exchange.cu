@@ -11,103 +11,208 @@
 // layout of ragged_all_to_all: sender s's segment for destination d lands at
 // offset sum_{s' < s} size[s', d] of d's buffer.
 //
-// One launch copies one sender's plane: grid (blocks, destinations), a
-// grid-stride loop over the segment, one u32 per thread, so loads and stores
-// coalesce.  Sizes and offsets are read on the device (the host never waits
-// for them); destination buffers come as a table of base pointers, so the
-// same kernel serves buffers on the sender's own card and, later, peer-mapped
-// buffers of other cards.  A store past the receiver's capacity is dropped
-// element by element; the caller still reports the demand, which is the
-// reference's truncate-and-signal rule.  Each block adds the elements it
-// wrote to the receiver's arrival counter with one atomicAdd: the counterpart
-// of the drain.
+// One launch does the whole exchange, every sender and every plane, and
+// writes every receive word exactly once.  The segments of receiver d tile
+// [0, min(demand_d, capacity)) of its buffer in sender order (the offsets are
+// a cumsum), and the pad word fills the rest, so the kernel walks the
+// receive buffers, not the senders: block (c, d, j) owns receive words
+// [c * kChunk, (c + 1) * kChunk) of receiver d's buffer of plane j.  It copies
+// the part of each sender's segment that falls there, writes the pad word
+// over the part at or past min(demand_d, capacity), and adds the words that
+// landed to arrived[j, d] with one atomicAdd (the counterpart of the drain).
+// Stores past the capacity never happen: a segment keeps its part below it,
+// and the caller still reports the demand (the reference's truncate-and-
+// signal rule).  Sizes and offsets are read on the device, so the host never
+// waits for them; each block sums the sizes of the senders before s to find
+// where s's segment lands, so the layout needs no table of its own.  Sender
+// planes and receiver buffers come as a table of pointers, so the same kernel
+// serves buffers on the sender's own card and, later, peer-mapped buffers of
+// other cards.
 //
-// Ordering, the counterpart of the barrier: every receive buffer is allocated
-// and filled with the pad word before the first launch, and receivers read
-// only after every sender's launch.  With all shards on one card, stream
-// order gives both.  Shards on several cards need events between the fill,
-// the launches and the reads: not done here.
+// Copies are 16 bytes wide at any alignment: a piece peels scalar words
+// until its destination is 16-byte aligned, then stores aligned uint4s; where
+// the source's word offset differs mod 4 each store takes its four words
+// from two aligned uint4 loads (the second is the next store's first, so it
+// comes from L1), and a scalar tail ends the piece.  The pad is the same
+// split with no source.
 //
-// Bound: bytes.  Every element is read once and written once (8 bytes), so a
-// launch should approach the 3.35 TB/s of the H100's HBM; chip_smoke.py
-// prints the kernel's device time and rate at the shuffle's exchange.
+// Bound: bytes.  Each landed word is read once and each receive word written
+// once: 4 * (landed + planes * D * capacity) bytes over the H100's 3.35 TB/s.
+// The first design (one launch per sender and plane, one u32 a thread, the
+// receive buffers filled with the pad word beforehand) wrote every landed
+// word twice and ran its launches at 43% of HBM bandwidth on the shuffle's
+// unaligned segments.
+//
+// Ordering, the counterpart of the barrier: receivers read only after the
+// launch, which stream order gives with all shards on one card.  Shards on
+// several cards need events around it: not done here.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+constexpr int kChunk = 8192;  // receive words per block
+constexpr int kUnroll = 4;    // 16-byte stores in flight per thread
+constexpr uint32_t kPad = 0xFFFFFFFFu;
+
+struct Exchange {
+  // [j * n + s]: sender s's plane j; [(n_planes + j) * n + d]: receiver d's
+  // buffer of plane j (capacity words)
+  const long long* ptrs;
+  const long long* src_off;  // (n, n) [s, d]: segment start in the sender
+  const long long* sizes;    // (n, n) [s, d]: rows s sends d
+  unsigned long long* arrived;  // (n_planes, n)
+  long long capacity;
+  int n;
+  int n_planes;
+};
+
+template <int R>
+__device__ __forceinline__ uint4 shifted(const uint4& x, const uint4& y) {
+  if constexpr (R == 1) return make_uint4(x.y, x.z, x.w, y.x);
+  if constexpr (R == 2) return make_uint4(x.z, x.w, y.x, y.y);
+  return make_uint4(x.w, y.x, y.y, y.z);
+}
+
+// nvec aligned 16-byte stores at dst from the words at src, whose word
+// offset mod 4 is R: store v takes words 4v .. 4v+3 of src, which lie in the
+// aligned uint4s v and v + 1 counted from src - R.  Either uint4 holds a word
+// of the segment, so no load leaves the source's 16-byte blocks.
+template <int R>
+__device__ __forceinline__ void copy_body(uint4* __restrict__ dst,
+                                          const uint32_t* __restrict__ src,
+                                          long long nvec) {
+  const uint4* a = reinterpret_cast<const uint4*>(src - R);
+  for (long long v0 = threadIdx.x; v0 < nvec; v0 += kThreads * kUnroll) {
+    uint4 x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long v = v0 + u * kThreads;
+      if (v < nvec) {
+        if constexpr (R == 0) {
+          x[u] = __ldg(a + v);
+        } else {
+          x[u] = shifted<R>(__ldg(a + v), __ldg(a + v + 1));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long v = v0 + u * kThreads;
+      if (v < nvec) dst[v] = x[u];
+    }
+  }
+}
+
+// Words until p is 16-byte aligned, at most len.
+__device__ __forceinline__ long long head_of(const uint32_t* p, long long len) {
+  const long long h = (4 - ((reinterpret_cast<uintptr_t>(p) >> 2) & 3)) & 3;
+  return h < len ? h : len;
+}
+
+// len words from src to dst (both 4-byte aligned), by the whole block.
+__device__ __forceinline__ void copy_words(uint32_t* dst, const uint32_t* src,
+                                           long long len) {
+  const int t = threadIdx.x;
+  const long long head = head_of(dst, len);
+  if (t < head) dst[t] = src[t];
+  dst += head;
+  src += head;
+  len -= head;
+  const long long nvec = len >> 2;
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+  switch ((reinterpret_cast<uintptr_t>(src) >> 2) & 3) {
+    case 0: copy_body<0>(d4, src, nvec); break;
+    case 1: copy_body<1>(d4, src, nvec); break;
+    case 2: copy_body<2>(d4, src, nvec); break;
+    default: copy_body<3>(d4, src, nvec); break;
+  }
+  const long long i = (nvec << 2) + t;
+  if (i < len) dst[i] = src[i];
+}
+
+// len pad words at dst, by the whole block.
+__device__ __forceinline__ void pad_words(uint32_t* dst, long long len) {
+  const int t = threadIdx.x;
+  const long long head = head_of(dst, len);
+  if (t < head) dst[t] = kPad;
+  dst += head;
+  len -= head;
+  const long long nvec = len >> 2;
+  uint4* d4 = reinterpret_cast<uint4*>(dst);
+  for (long long v = t; v < nvec; v += kThreads) {
+    d4[v] = make_uint4(kPad, kPad, kPad, kPad);
+  }
+  const long long i = (nvec << 2) + t;
+  if (i < len) dst[i] = kPad;
+}
 
 __global__ void __launch_bounds__(kThreads)
-exchange_kernel(const uint32_t* __restrict__ src,
-                const long long* __restrict__ src_off,
-                const long long* __restrict__ sizes,
-                const long long* __restrict__ dst_ptr,
-                const long long* __restrict__ dst_off, long long capacity,
-                unsigned long long* __restrict__ arrived) {
+exchange_kernel(const __grid_constant__ Exchange X) {
   const int d = blockIdx.y;
-  const long long off = dst_off[d];
-  long long fit = capacity - off;  // stores at or past capacity are dropped
-  if (fit > sizes[d]) fit = sizes[d];
-  if (fit <= 0) return;  // uniform across the block
-  const uint32_t* in = src + src_off[d];
-  uint32_t* out = reinterpret_cast<uint32_t*>(dst_ptr[d]) + off;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long wrote = 0;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < fit; i += step) {
-    out[i] = in[i];
-    ++wrote;
-  }
-  // one atomicAdd per block: warp sums, then the first warp sums the warps
-  __shared__ long long warp_sum[kThreads / 32];
-  for (int o = 16; o > 0; o >>= 1) wrote += __shfl_down_sync(~0u, wrote, o);
-  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = wrote;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    wrote = threadIdx.x < kThreads / 32 ? warp_sum[threadIdx.x] : 0;
-    for (int o = 16; o > 0; o >>= 1) wrote += __shfl_down_sync(~0u, wrote, o);
-    if (threadIdx.x == 0 && wrote > 0) {
-      atomicAdd(&arrived[d], static_cast<unsigned long long>(wrote));
+  const int j = blockIdx.z;
+  const int n = X.n;
+  const long long cap = X.capacity;
+  const long long p0 = static_cast<long long>(blockIdx.x) * kChunk;
+  const long long p1 = p0 + kChunk < cap ? p0 + kChunk : cap;
+  uint32_t* out = reinterpret_cast<uint32_t*>(
+      X.ptrs[static_cast<long long>(X.n_planes + j) * n + d]);
+  long long landed = 0;  // words of [p0, p1) that landed; uniform
+  long long fill = 0;    // min(demand_d, capacity): where the pad begins
+  long long lo = 0;      // where sender s's segment lands: sum of sizes[< s, d]
+  for (int s = 0; s < n; ++s) {
+    const long long i = static_cast<long long>(s) * n + d;
+    const long long size = X.sizes[i];
+    long long fit = cap - lo;  // the part of the segment below the capacity
+    if (fit > size) fit = size;
+    if (fit < 0) fit = 0;
+    fill += fit;
+    const long long a = p0 > lo ? p0 : lo;
+    const long long b = p1 < lo + fit ? p1 : lo + fit;
+    if (a < b) {
+      const uint32_t* in = reinterpret_cast<const uint32_t*>(
+                               X.ptrs[static_cast<long long>(j) * n + s]) +
+                           X.src_off[i] + (a - lo);
+      copy_words(out + a, in, b - a);
+      landed += b - a;
     }
+    lo += size;
+  }
+  const long long a = p0 > fill ? p0 : fill;
+  if (a < p1) pad_words(out + a, p1 - a);
+  if (threadIdx.x == 0 && landed > 0) {
+    atomicAdd(&X.arrived[static_cast<long long>(j) * n + d],
+              static_cast<unsigned long long>(landed));
   }
 }
 
 }  // namespace
 
-// src: the sender's u32 plane.  src_off, sizes, dst_ptr, dst_off, arrived:
-// device arrays of n_dest int64 (dst_ptr holds each receiver's buffer base
-// address).  max_seg bounds every segment's stored length (the sender's plane
-// length or the capacity, whichever is smaller) and sizes the grid.
-extern "C" int rdst_remote_exchange(const void* src, const void* src_off,
-                                    const void* sizes, const void* dst_ptr,
-                                    const void* dst_off, int n_dest,
-                                    long long max_seg, long long capacity,
-                                    void* arrived, void* stream) {
-  if (n_dest < 1 || n_dest > 65535 || max_seg < 0 || capacity < 0) {
+// ptrs: device table of 2 * n_planes * n int64 addresses (sender planes, then
+// receiver buffers, as in Exchange).  src_off, sizes: device (n, n) int64
+// [sender, receiver].  arrived: device (n_planes, n) int64, added to.  Every
+// receive word is written: no fill beforehand.
+extern "C" int rdst_remote_exchange(const void* ptrs, const void* src_off,
+                                    const void* sizes, int n, int n_planes,
+                                    long long capacity, void* arrived,
+                                    void* stream) {
+  if (n < 1 || n > 65535 || n_planes < 1 || n_planes > 65535 || capacity < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (max_seg == 0) return static_cast<int>(cudaGetLastError());
-  int device = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long blocks = (max_seg + kThreads - 1) / kThreads;
-  long long cap = (static_cast<long long>(sms) * kBlocksPerSm + n_dest - 1) /
-                  n_dest;
-  if (blocks > cap) blocks = cap;
-  const dim3 grid(static_cast<unsigned int>(blocks),
-                  static_cast<unsigned int>(n_dest));
-  exchange_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(src), static_cast<const long long*>(src_off),
-      static_cast<const long long*>(sizes),
-      static_cast<const long long*>(dst_ptr),
-      static_cast<const long long*>(dst_off), capacity,
-      static_cast<unsigned long long*>(arrived));
+  const long long chunks = (capacity + kChunk - 1) / kChunk;
+  if (chunks == 0) return static_cast<int>(cudaGetLastError());
+  if (chunks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  Exchange X;
+  X.ptrs = static_cast<const long long*>(ptrs);
+  X.src_off = static_cast<const long long*>(src_off);
+  X.sizes = static_cast<const long long*>(sizes);
+  X.arrived = static_cast<unsigned long long*>(arrived);
+  X.capacity = capacity;
+  X.n = n;
+  X.n_planes = n_planes;
+  const dim3 grid(static_cast<unsigned int>(chunks), static_cast<unsigned int>(n),
+                  static_cast<unsigned int>(n_planes));
+  exchange_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(X);
   return static_cast<int>(cudaGetLastError());
 }

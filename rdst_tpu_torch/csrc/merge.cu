@@ -1,10 +1,10 @@
-// Kernels B4 (merge stage) and B5 (merge tail): the compare-exchange kernels
-// of the fused bitonic merge, rdst_tpu_torch/ops/fused_merge.py.
+// Kernel B4 (merge stage): the stride kernel of the fused bitonic merge,
+// rdst_tpu_torch/ops/fused_merge.py.
 //
-// Both run the merge phase of a bitonic network, whose direction is uniform:
+// It runs the merge phase of a bitonic network, whose direction is uniform:
 // every pair swaps when keys[lo] > keys[hi], strictly and lexicographically
 // over the first n_keys planes, and every plane follows.  Planes are u8, u16
-// or u32 and widen to u32 in registers or shared memory (bitonic.cuh).
+// or u32 and widen to u32 in registers (bitonic.cuh).
 //
 // B4, merge_stage_kernel, replaces the Pallas _stage_kernel (rdst_tpu/ops/
 // pallas_merge.py:148, launched by _pallas_stage at :208): one stride s over
@@ -16,19 +16,13 @@
 // memory.  Each thread loads every plane of both partners before it
 // compares, so up to 16 loads are in flight per thread.  Bound: one read and
 // one write of every plane per stride (bandwidth); in place (ins == outs) a
-// pair that does not swap is not written back.
+// pair that does not swap is not written back.  Each pair belongs to one
+// thread, so the kernel may run in place.
 //
-// B5, merge_tail_kernel, replaces the Pallas _tail_kernel (pallas_merge.py:
-// 166, launched by _pallas_tail at :232): one CTA holds one aligned block of
-// every plane in shared memory and runs every stride block/2 .. 1 there.  The
-// TPU splits those into row strides and lane strides for its (rows, 128)
-// layout; here a stride is a stride, one pass over shared memory with a
-// barrier each (stage() in bitonic.cuh).  Bound: one read and one write of
-// every plane; the block takes half of config.bitonic_smem_bytes so that two
-// CTAs fit an SM.
-//
-// Each pair (B4) and each block (B5) belongs to one thread or one CTA, so
-// both kernels may run in place.
+// B5, the strides below the block (the Pallas _tail_kernel, pallas_merge.py:
+// 166, launched by _pallas_tail at :232), is no kernel of its own: it is B2's
+// rdst_bitonic_tail (bitonic.cu) on a plan of one level with no direction,
+// its tile held in registers.
 #include "bitonic.cuh"
 
 namespace {
@@ -74,17 +68,6 @@ merge_stage_kernel(Planes P, long long half, long long s, bool in_place) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-merge_tail_kernel(Planes P, int block) {
-  extern __shared__ uint32_t sm[];
-  const long long g0 = static_cast<long long>(blockIdx.x) * block;
-  load_block(sm, P, g0, block);
-  __syncthreads();
-  auto ascending = [](int) { return false; };
-  for (int s = block / 2; s >= 1; s >>= 1) stage(sm, block, P, s, ascending);
-  store_block(sm, P, g0, block);
-}
-
 }  // namespace
 
 // ins/outs: n_planes device pointers (planes of length n, widths in bytes),
@@ -113,27 +96,5 @@ extern "C" int rdst_merge_stage(void* const* ins, void* const* outs,
   merge_stage_kernel<<<static_cast<unsigned int>(blocks), kStageThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(P, half, s,
                                                             in_place);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Every stride block/2 .. 1 on each aligned block of `block` elements.
-extern "C" int rdst_merge_tail(void* const* ins, void* const* outs,
-                               const int* widths, int n_planes, int n_keys,
-                               long long n, int block, void* stream) {
-  Planes P;
-  if (!make_planes(&P, ins, outs, widths, n_planes, n_keys) || !pow2(block) ||
-      block < 2 || n % block != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = static_cast<size_t>(block) * n_planes * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      merge_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = block / 2 < kThreads ? block / 2 : kThreads;
-  if (n > 0) {
-    merge_tail_kernel<<<static_cast<unsigned int>(n / block), threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(P, block);
-  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,17 +9,18 @@ stage and several kernels per pass; here:
   B4 (stride >= block)  one pass per stride, ``csrc/merge.cu``
                         ``merge_stage_kernel``: pairs (lo, lo + s) compared
                         and exchanged in registers;
-  B5 (stride < block)   one pass for every remaining stride, ``merge.cu``
-                        ``merge_tail_kernel``: each CTA holds one aligned
-                        block in shared memory and runs strides
-                        block/2 .. 1 there.
+  B5 (stride < block)   one pass for every remaining stride: B2's kernel
+                        (``csrc/bitonic.cu`` ``rdst_bitonic_tail``) on a
+                        plan of one level with no direction, strides
+                        block/2 .. 1, ascending on every aligned block.  A
+                        tile lives in registers (``fused_sort`` says how);
+                        launches count on ``MERGE_TAIL``, apart from B2's.
 
-The block is :func:`pick_block`: the largest power of two whose planes,
-widened to 4 bytes, fit half of ``config.bitonic_smem_bytes`` less the 1 KB
-the runtime reserves per block, so two CTAs fit an SM.  Both
-kernels compare strictly (ties never swap), so their output depends only on
-the stage sequence, which is the stage loop's: kernels, plain versions, the
-Pallas kernels and the XLA loop agree bit for bit, riders included.
+The block is :func:`pick_block`, B2's big block (``fused_sort.pick_blocks``).
+Both kernels compare strictly (ties never swap), so their output depends
+only on the stage sequence, which is the stage loop's: kernels, plain
+versions, the Pallas kernels and the XLA loop agree bit for bit, riders
+included.
 
 :func:`merge_stage_call` and :func:`merge_tail_call` are the wrappers: CUDA
 planes launch the kernel (or raise), CPU planes run
@@ -39,7 +40,6 @@ import torch
 
 from rdst_tpu_torch import _build
 from rdst_tpu_torch import _planes as P
-from rdst_tpu_torch import config
 from rdst_tpu_torch.ops import fused_sort as fs
 
 __all__ = [
@@ -55,19 +55,15 @@ MERGE_STAGE = _build.Kernel(
     "merge_stage", "rdst_merge_stage",
     _PLANE_ARGS + [ctypes.c_longlong, ctypes.c_void_p],
 )
-MERGE_TAIL = _build.Kernel(
-    "merge_tail", "rdst_merge_tail",
-    _PLANE_ARGS + [ctypes.c_int, ctypes.c_void_p],
-)
+MERGE_TAIL = _build.Kernel("merge_tail", "rdst_bitonic_tail", fs.TAIL.argtypes)
 
 
 def pick_block(n_planes: int) -> int:
-    """B5's shared-memory block (elements) for ``n_planes`` planes: the
-    largest power of two whose planes, widened to 4 bytes, fit half of
-    ``config.bitonic_smem_bytes`` less 1 KB (two CTAs per SM).  Replaces
-    the v5e VMEM rule of ``pallas_merge.pick_block``."""
-    cap = (config.bitonic_smem_bytes // 2 - 1024) // (4 * max(n_planes, 1))
-    return 1 << fs._log2(max(cap, 2 * fs.GRAIN))
+    """B5's block (elements) for ``n_planes`` planes: B2's big block, the
+    largest one CTA of ``csrc/bitonic.cu`` holds (2^14 at 1-2 planes, 2^13
+    at 3-4, 2^12 at 5-7, 2^11 at 8).  Replaces the v5e VMEM rule of
+    ``pallas_merge.pick_block``."""
+    return fs.pick_blocks(n_planes)[1]
 
 
 def _check_stage(planes, n, s, n_keys):
@@ -80,13 +76,6 @@ def _check_tail(planes, n, block, n_keys):
     fs._check_planes(planes, n, n_keys)
     if block < 2 or block & (block - 1) or n % block:
         raise ValueError(f"tail block {block} must be a power of two dividing {n}")
-
-
-def _check_smem(block, n_planes):
-    if block * n_planes * 4 > fs._SMEM_MAX:
-        raise ValueError(
-            f"block {block} x {n_planes} planes exceeds a CTA's shared memory"
-        )
 
 
 def _plain(planes, n_keys, strides):
@@ -110,29 +99,22 @@ def merge_tail_plain(planes, n, block, n_keys):
     return _plain(planes, n_keys, fs._strides(block // 2))
 
 
-def _cuda_planes(planes, n, n_keys, in_place):
-    planes = [p.contiguous() for p in planes]
-    dev, _ = _build.check_cuda_planes(planes, P.UNSIGNED)
-    outs, ins_a, outs_a, widths = fs._plane_ptrs(
-        planes, planes if in_place else None)
-    return dev, outs, (ins_a, outs_a, widths, len(planes), n_keys, n)
-
-
 def merge_stage_cuda(planes, n, s, n_keys, *, in_place=False):
     """Launch B4 (``csrc/merge.cu``)."""
     _check_stage(planes, n, s, n_keys)
-    dev, outs, args = _cuda_planes(planes, n, n_keys, in_place)
-    MERGE_STAGE.launch(dev, *args, s, _build.stream_of(outs[0]))
+    planes = [p.contiguous() for p in planes]
+    dev, _ = _build.check_cuda_planes(planes, P.UNSIGNED)
+    outs, ins_a, outs_a, widths = fs._plane_ptrs(planes, planes if in_place else None)
+    MERGE_STAGE.launch(dev, ins_a, outs_a, widths, len(planes), n_keys, n, s,
+                       _build.stream_of(outs[0]))
     return outs
 
 
 def merge_tail_cuda(planes, n, block, n_keys, *, in_place=False):
-    """Launch B5 (``csrc/merge.cu``)."""
-    _check_tail(planes, n, block, n_keys)
-    _check_smem(block, len(planes))
-    dev, outs, args = _cuda_planes(planes, n, n_keys, in_place)
-    MERGE_TAIL.launch(dev, *args, block, _build.stream_of(outs[0]))
-    return outs
+    """Launch B5: ``rdst_bitonic_tail`` (``csrc/bitonic.cu``) on one
+    direction-less level at strides block/2 .. 1."""
+    return fs._tail_launch(MERGE_TAIL, list(planes), n, block, n_keys,
+                           [(None, block // 2)], None, in_place)
 
 
 def merge_stage_call(planes, n, s, n_keys, *, in_place=False):

@@ -257,6 +257,8 @@ def _net_plan(levels, block, n_planes, flip=None):
     Every stage runs ascending: a FLIP before and after each level
     complements the keys of its descending runs, as the Pallas kernels do
     (one FLIP with two directions where one level ends and the next begins).
+    A level whose direction is None has no descending runs and no FLIP (B5:
+    the merge phase, ascending everywhere).
 
     Layout a puts the R = log2(E) register bits of a thread at element bits
     [a, a + R); the thread index fills the other bits from the bottom, its
@@ -289,6 +291,8 @@ def _net_plan(levels, block, n_planes, flip=None):
     steps = [] if flip is None else [(_FLIP, _NO_DIR, flip)]
 
     def flip_by(d):  # two FLIPs in a row are one
+        if d is None:
+            return
         if steps and steps[-1][0] == _FLIP and steps[-1][1] == _NO_DIR:
             steps[-1] = (_FLIP, d, steps[-1][2])
         else:
@@ -324,23 +328,39 @@ def _dir_code(bit, log_block):
     return bit if bit < log_block else -1 - (bit - log_block)
 
 
-def tail_cuda(planes, n, block, n_keys, levels, unflip_shift):
-    """Launch the tail kernel of ``csrc/bitonic.cu``."""
+def _tail_net(levels, unflip_shift, block):
+    """A tail launch's levels and un-flip as :func:`_net_plan` takes them:
+    (direction code or None, stage bits) per level, and the un-flip's
+    code."""
+    L = _log2(block)
+    net = [(None if log_2r is None else _dir_code(log_2r, L),
+            [_log2(s) for s in _strides(start)]) for log_2r, start in levels]
+    return net, None if unflip_shift is None else _dir_code(unflip_shift, L)
+
+
+def _tail_launch(kernel, planes, n, block, n_keys, levels, unflip_shift,
+                 in_place):
+    """Launch ``rdst_bitonic_tail`` (counted on ``kernel``: B2's TAIL or
+    B5's MERGE_TAIL).  In place, each tile is read and written by one CTA,
+    so outputs may be the inputs."""
     planes = [p.contiguous() for p in planes]
     _check_tail(planes, n, block, n_keys, levels)
     dev, _ = _build.check_cuda_planes(planes, P.UNSIGNED)
     _check_fit(planes, block)
-    L = _log2(block)
-    net = [(_dir_code(log_2r, L), [_log2(s) for s in _strides(start)])
-           for log_2r, start in levels]
-    flip = None if unflip_shift is None else _dir_code(unflip_shift, L)
-    outs, ins_a, outs_a, widths = _plane_ptrs(planes)
-    TAIL.launch(
+    net, flip = _tail_net(levels, unflip_shift, block)
+    outs, ins_a, outs_a, widths = _plane_ptrs(planes, planes if in_place else None)
+    kernel.launch(
         dev, ins_a, outs_a, widths, len(planes), n_keys, n, block,
         *_plan_args(block, len(planes), net, flip),
         _build.stream_of(planes[0]),
     )
     return outs
+
+
+def tail_cuda(planes, n, block, n_keys, levels, unflip_shift):
+    """Launch the tail kernel of ``csrc/bitonic.cu``."""
+    return _tail_launch(TAIL, planes, n, block, n_keys, levels, unflip_shift,
+                        False)
 
 
 def span_cuda(planes, n, s_hi, s_lo, two_r, block, n_keys):

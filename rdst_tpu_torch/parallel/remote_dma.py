@@ -15,15 +15,16 @@ s's segment for d lands at offset ``sum(size[:s, d])`` of d's buffer
 bit, pads included.
 
 :func:`remote_dma_exchange` is the wrapper: CUDA planes launch
-``csrc/exchange.cu`` once per (sender, plane) on PyTorch's current stream,
-with no host synchronisation; CPU planes run
-:func:`remote_dma_exchange_plain`, slice copies in PyTorch.  Receive buffers
-are one allocation of D x capacity elements per plane, filled with the pad
-word before the first launch; receiver d's buffer is the view
-``[d * capacity, (d + 1) * capacity)``.  All shards of an exchange lie on one
-device: stream order stands in for the reference's barrier.  Shards on
-several cards (peer-mapped destination pointers, events in place of the
-barrier) are later work.
+``csrc/exchange.cu`` once per call, whatever the number of shards and
+planes, on PyTorch's current stream, with no host synchronisation; CPU
+planes run :func:`remote_dma_exchange_plain`, slice copies in PyTorch.
+Receive buffers are one allocation of D x capacity elements per plane,
+left empty: the kernel writes every word once, a received row or the pad
+word.  Receiver d's buffer is the view ``[d * capacity, (d + 1) *
+capacity)``.  All shards of an exchange lie on one device: stream order
+stands in for the reference's barrier.  Shards on several cards
+(peer-mapped destination pointers, events in place of the barrier) are
+later work.
 
 Planes are u32.  Any other dtype raises ``TypeError`` before anything is
 allocated or launched: the reference's docstring promised a fallback for
@@ -49,9 +50,8 @@ PAD_WORD = 0xFFFFFFFF
 
 EXCHANGE = _build.Kernel(
     "remote_exchange", "rdst_remote_exchange",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong,
-                             ctypes.c_longlong, ctypes.c_void_p,
-                             ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                             ctypes.c_void_p, ctypes.c_void_p],
 )
 
 
@@ -128,7 +128,7 @@ def remote_dma_exchange_plain(planes, input_offsets, send_sizes, capacity):
 
 
 def remote_dma_exchange_cuda(planes, input_offsets, send_sizes, capacity):
-    """Launch B6 (``csrc/exchange.cu``) once per (sender, plane).  Same
+    """Launch B6 (``csrc/exchange.cu``) once for the whole exchange.  Same
     return as :func:`remote_dma_exchange_plain`; ``arrived`` is counted by
     the kernel."""
     D, k = _check(planes, input_offsets, send_sizes)
@@ -139,33 +139,51 @@ def remote_dma_exchange_cuda(planes, input_offsets, send_sizes, capacity):
             raise ValueError("exchange planes must be contiguous, on one CUDA device")
     offs = torch.stack([o.to(dev, torch.int64) for o in input_offsets])
     sizes = torch.stack([s.to(dev, torch.int64) for s in send_sizes])
-    lay = exchange_layout(sizes, capacity)
-    recv = [P.full(D * capacity, PAD_WORD, torch.uint32, dev) for _ in range(k)]
+    recv = [torch.empty(D * capacity, dtype=torch.uint32, device=dev) for _ in range(k)]
     arrived = torch.zeros((k, D), dtype=torch.int64, device=dev)
-    launch_all(planes, offs, sizes, lay.recv_offsets, recv, arrived, capacity)
-    return recv, lay.demand, arrived
+    launch_all(planes, offs, sizes, recv, arrived, capacity)
+    return recv, sizes.sum(0), arrived
 
 
-def launch_all(planes, offs, sizes, recv_offsets, recv, arrived, capacity):
-    """The launches of one exchange, on buffers the caller prepared:
-    ``offs``, ``sizes`` and ``recv_offsets`` (D, D) int64 and ``recv`` (one
-    pad-filled (D * capacity,) plane per sent plane) on the planes' device;
-    adds the landed elements to ``arrived`` (planes, D).  Split out so the
-    launches can be timed without the allocation and the fill."""
+def _pointer_table(planes, recv, capacity) -> list[int]:
+    """The kernel's table of addresses: sender s's plane j at ``j * D + s``,
+    then receiver d's buffer of plane j (``recv[j]`` from element
+    ``d * capacity``) at ``(k + j) * D + d``."""
     D = len(planes)
+    src = [planes[s][j].data_ptr() for j in range(len(recv)) for s in range(D)]
+    dst = [r.data_ptr() + 4 * capacity * d for r in recv for d in range(D)]
+    return src + dst
+
+
+def launch_all(planes, offs, sizes, recv, arrived, capacity):
+    """The one launch of an exchange, on buffers the caller prepared:
+    ``offs`` and ``sizes`` (D, D) int64 on the planes' device; ``recv`` one
+    (D * capacity,) u32 plane per sent plane, whatever it holds (every word
+    is written, at :func:`exchange_layout`'s offsets, which the kernel sums
+    itself); adds the landed elements to ``arrived`` (planes, D).  Split
+    out so the launch can be timed without the allocations."""
+    D = len(planes)
+    if not recv or capacity == 0:
+        return  # no receive word to write
     dev = recv[0].device
-    step = torch.arange(D, dtype=torch.int64, device=dev) * (capacity * 4)
-    stream = _build.stream_of(recv[0])
-    for j, out in enumerate(recv):
-        dst_ptr = step + out.data_ptr()
-        for s in range(D):
-            src = planes[s][j]
-            EXCHANGE.launch(
-                dev, src.data_ptr(), offs[s].data_ptr(), sizes[s].data_ptr(),
-                dst_ptr.data_ptr(), recv_offsets[s].data_ptr(), D,
-                min(int(src.shape[0]), capacity), capacity,
-                arrived[j].data_ptr(), stream,
-            )
+    tabs = [t.contiguous() for t in (offs, sizes)]
+    for t in tabs:
+        if t.dtype != torch.int64 or t.shape != (D, D) or t.device != dev:
+            raise ValueError(f"offsets and sizes must be ({D}, {D}) int64 on {dev}")
+    for r in recv:
+        if (r.dtype != torch.uint32 or r.shape != (D * capacity,)
+                or not r.is_contiguous() or r.device != dev):
+            raise ValueError(f"receive planes must be ({D * capacity},) u32 on {dev}")
+    if arrived.dtype != torch.int64 or arrived.shape != (len(recv), D) \
+            or not arrived.is_contiguous() or arrived.device != dev:
+        raise ValueError(f"arrived must be ({len(recv)}, {D}) int64 on {dev}")
+    # pinned, so the copy is asynchronous: the host waits for nothing
+    table = torch.tensor(_pointer_table(planes, recv, capacity),
+                         dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
+    EXCHANGE.launch(
+        dev, table.data_ptr(), *[t.data_ptr() for t in tabs], D, len(recv),
+        capacity, arrived.data_ptr(), _build.stream_of(recv[0]),
+    )
 
 
 def remote_dma_exchange(

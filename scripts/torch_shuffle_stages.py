@@ -11,29 +11,26 @@ with a synchronize around it:
   exchange       ``shuffle._exchange_raw``: layout, pad fill, B6 launches;
   finish sorts   ``shuffle._local_sort`` after the exchange (B2/B3);
   the rest       the call less those: windows, histograms, the assignment,
-                 write-backs, and the overlapped path's B4/B5 merges;
+                 write-backs, and the overlapped path's B4/B5 merges, whose
+                 launches and device time (CUDA events around each launch)
+                 the overlapped line prints;
 
 then one unwrapped call under ``torch.profiler``: its wall time, the device
 time summed over its kernels, and the kernels that took the most.
 
 Run from the checkout root:
 
-    python3 scripts/torch_shuffle_stages.py [--log2-rows 25] [--shards 8]
+    python3 scripts/torch_shuffle_stages.py [--log2-rows 25] [--shards 8] [--root DIR]
+
+``--root`` imports the package of another checkout (the parent's, for
+``scripts/torch_bitonic_ab.py``); it must have the same module layout.
 """
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-import torch  # noqa: E402
-
-from rdst_tpu_torch import _planes as P  # noqa: E402
-from rdst_tpu_torch import parallel as par  # noqa: E402
-from rdst_tpu_torch.parallel import shuffle as sh  # noqa: E402
+from pathlib import Path
 
 
 def main() -> int:
@@ -41,10 +38,19 @@ def main() -> int:
     ap.add_argument("--log2-rows", type=int, default=25, help="rows per shard, log2")
     ap.add_argument("--shards", type=int, default=8)
     ap.add_argument("--seed", type=int, default=5)
+    ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent.parent,
+                    help="checkout whose rdst_tpu_torch runs")
     args = ap.parse_args()
+    sys.path.insert(0, str(args.root.resolve()))
+    import torch
+
     if not torch.cuda.is_available():
         print("torch_shuffle_stages: CUDA is not available", file=sys.stderr)
         return 2
+    from rdst_tpu_torch import _planes as P
+    from rdst_tpu_torch import parallel as par
+    from rdst_tpu_torch.ops import fused_merge as fm
+    from rdst_tpu_torch.parallel import shuffle as sh
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -71,7 +77,21 @@ def main() -> int:
             return out
         return wrapper
 
+    merges: list[tuple[str, object, object]] = []
+
+    def on_events(kind, fn):
+        def wrapper(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            merges.append((kind, start, end))
+            return out
+        return wrapper
+
     real_sort, real_exchange = sh._local_sort, sh._exchange_raw
+    real_b4, real_b5 = fm.merge_stage_call, fm.merge_tail_call
     timed_exchange = timed(real_exchange, lambda: "exchange")
 
     def exchange(*a, **k):
@@ -81,10 +101,13 @@ def main() -> int:
 
     sh._local_sort = timed(real_sort, lambda: phase[0])
     sh._exchange_raw = exchange
+    fm.merge_stage_call = on_events("B4", real_b4)
+    fm.merge_tail_call = on_events("B5", real_b5)
     try:
         for label, overlap in (("cold", False), ("warm", False),
                                ("overlapped", True)):
             acc.clear()
+            merges.clear()
             phase[0] = "local sorts"
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -97,11 +120,17 @@ def main() -> int:
             rest = total - sum(acc.values())
             parts = "; ".join(f"{k} {v * 1e3:.2f} ms ({v / total:.1%})"
                               for k, v in acc.items())
+            kern = "".join(
+                f"; {kind} {len(t)} launches {sum(t):.2f} ms of device time"
+                for kind in ("B4", "B5")
+                for t in [[s.elapsed_time(e) for kd, s, e in merges if kd == kind]]
+                if t)
             print(f"{label}: total {total * 1e3:.2f} ms; {parts}; the rest "
-                  f"{rest * 1e3:.2f} ms ({rest / total:.1%}); peak "
+                  f"{rest * 1e3:.2f} ms ({rest / total:.1%}){kern}; peak "
                   f"{torch.cuda.max_memory_allocated()} B")
     finally:
         sh._local_sort, sh._exchange_raw = real_sort, real_exchange
+        fm.merge_stage_call, fm.merge_tail_call = real_b4, real_b5
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

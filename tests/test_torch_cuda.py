@@ -239,23 +239,42 @@ def test_merge_stage_kernel(dev, n, s, dtypes, n_keys):
     _same(own, want)
 
 
+@pytest.mark.parametrize("unaligned", [False, True])
 @pytest.mark.parametrize(
     "n,block,dtypes,n_keys",
     [
-        (1 << 16, 4096, [torch.uint32] * 4, 3),
-        (1 << 16, 8192, [torch.uint32, torch.uint32], 2),
-        (1 << 17, 4096, [torch.uint16, torch.uint32, torch.uint8], 2),
-        (1 << 15, 2048, [torch.uint32] * 8, 3),
-        (256, 256, [torch.uint32], 1),
+        # B2's block at every plane count (pick_block), 256 tiles or more
+        # for 132 persistent CTAs
+        (1 << 22, None, [U32], 1),
+        (1 << 22, None, [U32, U32], 2),
+        (1 << 21, None, [U16, U32, U8], 2),
+        (1 << 21, None, [U32] * 4, 3),
+        (1 << 20, None, [U32] * 5, 4),
+        (1 << 20, None, [U8, U16, U32, U8, U16, U32], 4),
+        (1 << 20, None, [U8] * 3 + [U16] * 2 + [U32] * 2, 5),
+        (1 << 19, None, [U32] * 8, 3),
+        # the old two-CTA blocks, and blocks below 32 x ELEMS
+        (1 << 16, 4096, [U32] * 4, 3),
+        (1 << 14, 512, [U32, U16], 2),
+        (256, 256, [U32], 1),
     ],
 )
-def test_merge_tail_kernel(dev, n, block, dtypes, n_keys):
-    pl = _planes(dev, n, dtypes, n + block, high=7)
+def test_merge_tail_kernel(dev, n, block, dtypes, n_keys, unaligned):
+    """B5 (``rdst_bitonic_tail`` on a direction-less plan) against its plain
+    version, out of place and in place; planes that start off a 16-byte
+    boundary take the element by element copies."""
+    block = block or fm.pick_block(len(dtypes))
+    pl = _planes(dev, n + 4, dtypes, n + block, high=7)
+    pl = [p[1:n + 1] if unaligned else p[:n] for p in pl]
+    assert bool(pl[0].data_ptr() % 16) == unaligned
     want = fm.merge_tail_plain(pl, n, block, n_keys)
+    before = fm.MERGE_TAIL.launches, fs.TAIL.launches
     _same(fm.merge_tail_cuda(pl, n, block, n_keys), want)
     own = [p.clone() for p in pl]
-    fm.merge_tail_cuda(own, n, block, n_keys, in_place=True)
+    out = fm.merge_tail_cuda(own, n, block, n_keys, in_place=True)
+    assert all(o.data_ptr() == p.data_ptr() for o, p in zip(out, own))
     _same(own, want)
+    assert (fm.MERGE_TAIL.launches, fs.TAIL.launches) == (before[0] + 2, before[1])
 
 
 def _sorted_runs(dev, n_runs, m, seed):
@@ -340,40 +359,56 @@ def test_every_algorithm_plan_on_the_card(dev, monkeypatch, algo):
     np.testing.assert_array_equal(gv.cpu().numpy(), v[order])
 
 
-def _exchange_inputs(dev, D, n_local, case, seed):
+def _exchange_inputs(dev, D, n_local, case, seed, shift=0, k=2):
+    """Sender s's k planes start ``shift`` words past s * n_local of one
+    allocation, so every source segment has its own residue mod 4."""
     rng = np.random.default_rng(seed)
     sm = rng.integers(0, n_local // D + 1, size=(D, D))
     if case == "edges":
         sm[0, :] = 0
         sm[:, D - 1] = 0
-        sm[1, 0] = 1
+        sm[1 % D, 0] = 1
     if case == "overflow":
-        sm[:, 1] = n_local // D  # receiver 1 demands n_local
+        sm[:, 1 % D] = n_local // D  # receiver 1 demands n_local
     offs = np.cumsum(sm, 1) - sm
-    planes = _planes(dev, D * n_local, [torch.uint32] * 2, seed)
-    planes = [[p[s * n_local:(s + 1) * n_local] for p in planes] for s in range(D)]
+    planes = _planes(dev, D * n_local + 4, [torch.uint32] * k, seed)
+    planes = [[p[shift + s * n_local:shift + (s + 1) * n_local] for p in planes]
+              for s in range(D)]
     return (planes, [torch.from_numpy(o).to(dev) for o in offs],
             [torch.from_numpy(z).to(dev) for z in sm], sm)
 
 
-@pytest.mark.parametrize("D,case,cap", [
-    (8, "random", 1 << 14), (8, "edges", 5000), (8, "overflow", 3000),
-    (3, "random", 9000), (1, "random", 1 << 14),
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+@pytest.mark.parametrize("D,case,cap,k", [
+    (8, "random", 1 << 14, 2), (8, "edges", 5001, 3), (8, "overflow", 3002, 1),
+    (3, "random", 9003, 2), (3, "overflow", 2050, 3), (1, "random", 1 << 14, 2),
+    (1, "overflow", 1001, 1),
 ])
-def test_remote_exchange_kernel(dev, D, case, cap):
-    """B6 against its plain version: buffers bit-equal, pads included;
-    every arrival counter min(demand, capacity); the demand reported."""
-    planes, offs, sizes, sm = _exchange_inputs(dev, D, 1 << 14, case, D + cap)
+def test_remote_exchange_kernel(dev, D, case, cap, k, shift):
+    """B6 against its plain version at every residue mod 4 of the source
+    planes and of the receiver buffers (the capacity): buffers bit-equal,
+    pads included; every arrival counter min(demand, capacity); the demand
+    reported; one launch per call.  On buffers that hold other words, the
+    launch alone overwrites every one of them."""
+    planes, offs, sizes, sm = _exchange_inputs(dev, D, 1 << 14, case, D + cap,
+                                               shift, k)
     before = rd.EXCHANGE.launches
     got, demand, arrived = rd.remote_dma_exchange_cuda(planes, offs, sizes, cap)
     torch.cuda.synchronize()
-    assert rd.EXCHANGE.launches == before + 2 * D
+    assert rd.EXCHANGE.launches == before + 1
     want, wdemand, warrived = rd.remote_dma_exchange_plain(planes, offs, sizes, cap)
     _same(got, want)
     assert torch.equal(demand, wdemand) and torch.equal(arrived, warrived)
     want_arr = np.minimum(sm.sum(0), cap)
-    np.testing.assert_array_equal(arrived.cpu().numpy(), np.tile(want_arr, (2, 1)))
+    np.testing.assert_array_equal(arrived.cpu().numpy(), np.tile(want_arr, (k, 1)))
     np.testing.assert_array_equal(demand.cpu().numpy(), sm.sum(0))
+    so, sz = torch.stack(offs), torch.stack(sizes)
+    recv = [torch.full((D * cap,), 0x5A5A5A5A, dtype=torch.int64, device=dev)
+            .to(torch.int32).view(torch.uint32) for _ in range(k)]
+    arr = torch.zeros((k, D), dtype=torch.int64, device=dev)
+    rd.launch_all(planes, so, sz, recv, arr, cap)
+    _same(recv, want)
+    assert torch.equal(arr, warrived)
 
 
 def _u64_on(dev, n, seed, high=None):
@@ -449,6 +484,9 @@ def test_kernel_wrappers_raise_on_bad_input(dev):
         fm.merge_stage_cuda(p, 1 << 13, 1 << 13, 1)  # stride too large
     with pytest.raises(ValueError):
         fm.merge_tail_cuda(p * 8, 1 << 13, 1 << 13, 1)  # smem
+    with pytest.raises(ValueError):  # 4 planes: B2's block is 2^13
+        fm.merge_tail_cuda(_planes(dev, 1 << 14, [torch.uint32] * 4, 2),
+                           1 << 14, 1 << 14, 1)
     sizes = [torch.zeros(2, dtype=torch.int64, device=dev)] * 2
     with pytest.raises(TypeError):  # B6 carries u32 planes only
         rd.remote_dma_exchange_cuda([[P.widen(p[0])]] * 2, sizes, sizes, 16)

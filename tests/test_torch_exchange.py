@@ -175,6 +175,110 @@ def test_exchange_arrivals_and_pads(rng):
         np.testing.assert_array_equal(recv[j].numpy(), want)
 
 
+def test_pointer_table_layout():
+    """The kernel's table: sender s's plane j at j * D + s, then receiver
+    d's buffer of plane j at (k + j) * D + d, capacity words apart."""
+    for D, k, cap in [(1, 2, 16), (3, 1, 7), (8, 3, 1000)]:
+        store = torch.zeros(D * k * 64 + 8, dtype=torch.int32).view(torch.uint32)
+        planes = [[store[(s * k + j) * 64 + s: (s * k + j) * 64 + s + 50]
+                   for j in range(k)] for s in range(D)]
+        recv = [torch.empty(D * cap, dtype=torch.uint32) for _ in range(k)]
+        tab = rd._pointer_table(planes, recv, cap)
+        assert len(tab) == 2 * k * D
+        for j in range(k):
+            for s in range(D):
+                assert tab[j * D + s] == planes[s][j].data_ptr()
+            for d in range(D):
+                assert tab[(k + j) * D + d] == recv[j][d * cap:].data_ptr()
+
+
+def _copy_model(out, writes, dst, mem, src, n):
+    """csrc/exchange.cu copy_words on word indices (the receive buffer and
+    ``mem`` start on 16-byte boundaries): scalar words until ``dst`` is
+    aligned, 16-byte stores whose four words come from the aligned uint4s v
+    and v + 1 at ``src - R``, a scalar tail."""
+    head = min(n, (4 - dst % 4) % 4)
+    pairs = [(dst + i, src + i) for i in range(head)]
+    d0, s0 = dst + head, src + head
+    nvec = (n - head) // 4
+    r = s0 % 4
+    base = s0 - r
+    for v in range(nvec):
+        blocks = [base + 4 * v] + ([base + 4 * v + 4] if r else [])
+        for b in blocks:  # every load holds a word of the segment
+            assert b < src + n and b + 3 >= src and b + 4 <= len(mem)
+        words = np.concatenate([mem[b:b + 4] for b in blocks])[r:r + 4]
+        out[d0 + 4 * v: d0 + 4 * v + 4] = words
+        writes[d0 + 4 * v: d0 + 4 * v + 4] += 1
+    pairs += [(d0 + i, s0 + i) for i in range(4 * nvec, n - head)]
+    for d, s in pairs:
+        out[d] = mem[s]
+        writes[d] += 1
+
+
+def _kernel_model(mem, shift, offs, sm, cap, chunk):
+    """The exchange kernel block by block: block (c, d, j) owns receive
+    words [c * chunk, (c + 1) * chunk) of receiver d's buffer of plane j,
+    copies the part of each sender's segment that lands there (at the sum
+    of the earlier senders' sizes), pads the part at or past min(demand,
+    capacity) and adds what landed to arrived[j, d].  ``mem[s][j]``: sender
+    s's storage, its plane starting at word ``shift``."""
+    D, k = len(mem), len(mem[0])
+    out = [np.zeros(D * cap, np.uint32) for _ in range(k)]
+    writes = [np.zeros(D * cap, np.int64) for _ in range(k)]
+    arrived = np.zeros((k, D), np.int64)
+    for j in range(k):
+        for d in range(D):
+            for p0 in range(0, cap, chunk):
+                p1 = min(p0 + chunk, cap)
+                fill = landed = lo = 0
+                for s in range(D):
+                    fit = max(0, min(int(sm[s, d]), cap - lo))
+                    fill += fit
+                    a, b = max(p0, lo), min(p1, lo + fit)
+                    if a < b:
+                        _copy_model(out[j], writes[j], d * cap + a, mem[s][j],
+                                    shift + int(offs[s, d]) + a - lo, b - a)
+                        landed += b - a
+                    lo += int(sm[s, d])
+                a = max(p0, fill)
+                out[j][d * cap + a: d * cap + p1] = PAD
+                writes[j][d * cap + a: d * cap + p1] += 1
+                arrived[j, d] += landed
+    return out, writes, arrived
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+@pytest.mark.parametrize("D,case", [(1, "random"), (1, "overflow"), (3, "edges"),
+                                    (3, "overflow"), (8, "edges"), (8, "overflow")])
+def test_exchange_kernel_model(D, case, shift):
+    """The kernel's walk over the receive buffers, at every residue mod 4 of
+    the source planes (``shift``) and of the capacity: every receive word is
+    written exactly once, and buffers (pads included) and arrivals equal the
+    plain version's, whose offsets are ``exchange_layout``'s, under empty
+    segments and overflow too."""
+    rng = np.random.default_rng(D * 10 + shift)
+    n_local, k = 301, 2
+    sm = _size_matrix(rng, D, n_local, case)  # D = 1: the whole shard
+    offs =_offsets(rng, sm, n_local) if D > 1 else np.zeros((1, 1), np.int64)
+    cap = (n_local // 2 if case == "overflow" else int(sm.sum(0).max()) + 5) + shift
+    words = -(-(shift + n_local) // 4) * 4
+    mem = [[rng.integers(0, 2**32, size=words, dtype=np.uint32) for _ in range(k)]
+           for _ in range(D)]
+    out, writes, arrived = _kernel_model(mem, shift, offs, sm, cap, chunk=64)
+    for w in writes:
+        assert (w == 1).all()
+    planes = [[torch.from_numpy(m[shift:shift + n_local].copy()) for m in ms] for ms in mem]
+    want, demand, want_arr = rd.remote_dma_exchange_plain(
+        planes, [torch.from_numpy(o) for o in offs], [torch.from_numpy(z) for z in sm], cap)
+    for g, w in zip(out, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    np.testing.assert_array_equal(arrived, want_arr.numpy())
+    np.testing.assert_array_equal(arrived[0], np.minimum(demand.numpy(), cap))
+    if case == "overflow":
+        assert demand.max() > cap
+
+
 @pytest.mark.parametrize("bad", [torch.uint16, torch.int64, torch.int32])
 def test_non_u32_plane_raises_before_any_write(bad):
     """Only u32 planes cross the exchange; anything else raises TypeError

@@ -233,8 +233,8 @@ def test_tiny_fallback():
 def test_pick_blocks_fit_shared_memory():
     """The B2/B3 block is the largest power of two one CTA holds: at most
     512 threads of ELEMS elements, and a u32 staging tile of every plane plus
-    a u32 transpose buffer in ``bitonic_smem_bytes``.  B5 keeps its two-CTA
-    sizing."""
+    a u32 transpose buffer in ``bitonic_smem_bytes``.  B5 runs on B2's
+    kernel and takes B2's block."""
     from rdst_tpu_torch.ops import fused_merge as fm
 
     cfg = fs.config
@@ -249,7 +249,7 @@ def test_pick_blocks_fit_shared_memory():
     assert [fs.pick_blocks(k)[0] for k in range(1, 9)] == [
         1 << 14, 1 << 14, 1 << 13, 1 << 13, 1 << 12, 1 << 12, 1 << 12, 1 << 11]
     assert [fm.pick_block(k) for k in range(1, 9)] == [
-        1 << 14, 1 << 13, 1 << 13, 1 << 12, 1 << 12, 1 << 12, 1 << 12, 1 << 11]
+        1 << 14, 1 << 14, 1 << 13, 1 << 13, 1 << 12, 1 << 12, 1 << 12, 1 << 11]
 
 
 def _trips(T, blk, row):
@@ -381,10 +381,7 @@ def test_tail_plan_on_kernel_model(n, block, dtypes, n_keys, levels, unflip):
     """B2's plan on the register-level model equals ``tail_plain``."""
     rng = np.random.default_rng(n + block + len(dtypes))
     planes = _planes(rng, n, dtypes)
-    L = block.bit_length() - 1
-    net = [(fs._dir_code(l2r, L), [s.bit_length() - 1 for s in fs._strides(start)])
-           for l2r, start in levels]
-    flip = None if unflip is None else fs._dir_code(unflip, L)
+    net, flip = fs._tail_net(levels, unflip, block)
     plan = fs._net_plan(net, block, len(planes), flip)
     assert [b for o, b in zip(plan[1], plan[2]) if o in (fs._REG, fs._LANE)] == [
         j for _, bits in net for j in bits]
@@ -430,6 +427,57 @@ def test_span_plan_on_kernel_model(n, s_hi, s_lo, two_r, block, dtypes, n_keys):
     want = fs.span_plain(_t(planes), n, s_hi, s_lo, two_r, block, n_keys)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b.numpy())
+
+
+_WIDTHS = [np.uint32, np.uint16, np.uint32, np.uint8]
+
+
+def _bitonic_blocks(rng, n, block, dtypes, n_keys):
+    """Planes whose every aligned block is an ascending run then a
+    descending one, with ties (five values a key plane) and all-ones keys."""
+    planes = [(rng.integers(0, 5, size=n, dtype=np.uint64)).astype(dt)
+              for dt in dtypes]
+    planes[0][::7] = np.iinfo(dtypes[0]).max
+    half = block // 2
+    for lo in range(0, n, half):
+        order = np.lexsort([p[lo:lo + half] for p in planes[:n_keys]][::-1])
+        if (lo // half) % 2:
+            order = order[::-1]
+        for p in planes:
+            p[lo:lo + half] = p[lo:lo + half][order]
+    return planes
+
+
+@pytest.mark.parametrize(
+    "k,block",
+    [(k, 1 << lb) for k in range(1, fs.MAX_PLANES + 1)
+     for lb in range(fs._log2(2 * fs.GRAIN), fs._log2(fs.pick_blocks(k)[1]) + 1)],
+)
+def test_merge_tail_plan_on_kernel_model(k, block):
+    """B5's plan (one level with no direction: strides block/2 .. 1, as
+    ``fused_merge.merge_tail_cuda`` launches it) on the register-level model
+    of the kernel equals ``merge_tail_plain``, and sorts every bitonic
+    block; it has no FLIP step."""
+    from rdst_tpu_torch.ops import fused_merge as fm
+
+    n_keys = 1 + (k - 1) % 3
+    dtypes = [_WIDTHS[(k + i) % 4] for i in range(k)]
+    n = 2 * block
+    rng = np.random.default_rng(1000 * k + block)
+    planes = _bitonic_blocks(rng, n, block, dtypes, n_keys)
+    net, flip = fs._tail_net([(None, block // 2)], None, block)
+    plan = fs._net_plan(net, block, k, flip)
+    assert fs._FLIP not in plan[1]
+    assert [b for o, b in zip(plan[1], plan[2]) if o != fs._MOVE] == list(
+        range(block.bit_length() - 2, -1, -1))
+    got = _model(planes, block, n_keys, plan,
+                 lambda t: t * block + np.arange(block), lambda t: t, n // block)
+    want = fm.merge_tail_plain(_t(planes), n, block, n_keys)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
+    for lo in range(0, n, block):
+        keys = [p[lo:lo + block].astype(np.int64) for p in got[:n_keys]]
+        assert not _lex_gt([x[:-1] for x in keys], [x[1:] for x in keys], n_keys).any()
 
 
 # -- the plain B2/B3 against the Pallas kernels, bit for bit ------------------
