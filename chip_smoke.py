@@ -9,19 +9,24 @@ Phases, each printing its own lines:
   1. environment: the card as nvidia-smi names it, and the kernel build;
   2. every kernel of the sort path against its plain PyTorch version on the
      card, at the shapes the single-card paths give it, bit for bit, with
-     times from CUDA events (median of a few runs): B1-B3 (with
-     ``torch.bincount`` timed beside B1's one-level histogram, a yardstick
-     the port never calls), and the merge kernels B4/B5 at the chunked
-     path's merge shape (2^25 x 4 planes) and others, B5 in place too;
+     times from CUDA events (median of a few runs): B1 on uniform,
+     presorted, all-equal, Zipf, one-hot, ragged and unaligned keys and at
+     the piece path's 10M x 1 word (with ``torch.bincount`` timed beside its
+     one-level use B1', a yardstick the port never calls), B2/B3, and the
+     merge kernels B4/B5 at the chunked path's merge shape (2^25 x 4
+     planes) and others, B5 in place too;
   3. the paths end to end through the public API, each driven with every
      launch count set to 0 just before it and read just after, each sorted
      bit-equal to numpy or to torch.sort, each printing its plan trace, time
      and rate:
        - 2^25 uniform u64 keys, a 10,000,000-pair stable u32 key-value sort
          (the piece path) and 2^22 f64 keys with +-NaN, +-0 and +-Inf;
+       - ``Sorter.run`` on sorted 2^25 u64 keys on the card: keys that take
+         the AlreadySorted short circuit (B1 alone) and uniform keys sorted;
        - the low-memory Regions path at the real gate: 2^30 int64 keys with
          int32 values on the card (12 GiB of planes, above the 10 GiB
-         ``low_mem_threshold_bytes``), with its peak device memory;
+         ``low_mem_threshold_bytes``), with its peak device memory, after
+         B1 against its plain version on the keys' 2^30 x 2 planes;
        - 20M u64 keys with the low-memory tuner and the gate forced open;
        - a presorted merge of 2^25 u64 keys whose first 15/16 are sorted;
        - the bucketed MtOop plan on 16M u32 key-value pairs, uniform and
@@ -250,6 +255,39 @@ def sorter_headline(torch, P, x64, dev):
           f"{tot['tail_kernel'][0]:.3f} ms in {tot['tail_kernel'][1]} launches, B3 "
           f"{tot['span_kernel'][0]:.3f} ms in {tot['span_kernel'][1]}; bit-exact vs "
           f"torch.sort, whose time on the same keys as int64 is {sort_ms:.3f} ms")
+
+
+def sorter_sorted(torch, P, K, rng, dev, drive):
+    """``Sorter.run`` on sorted 2^25 u64 keys already on the card, in two
+    forms.  Keys whose every byte level is nondecreasing (256 values in the
+    top byte, the rest constant) take the AlreadySorted short circuit: B1
+    and one copy of its buffer to the host, nothing else.  Uniform keys,
+    sorted, do not: their low bytes descend between neighbours, so
+    ``fully_sorted()`` is false and the plan runs in full, as in the
+    reference.  Each must come back equal to its input; device time from
+    CUDA events."""
+    from rdst_tpu_torch.sorter import Sorter
+
+    n = 1 << 25
+    top = np.sort(rng.integers(0, 256, size=n, dtype=np.uint64))
+    forms = [("256 top-byte values, every level nondecreasing",
+              (top << np.uint64(56)) | np.uint64(0x0001020304050607)),
+             ("uniform keys sorted", np.sort(rng.integers(0, 2**64, size=n, dtype=np.uint64)))]
+    for label, x in forms:
+        nk = K.normalize(x, device=dev)
+        sorter = Sorter()
+        (out, _), plans = drive(f"Sorter.run sorted 2^25 u64 on the card, {label}", n,
+                                lambda: sorter.run(nk))
+        if not all(torch.equal(P.sview(a), P.sview(b)) for a, b in zip(out.words, nk.words)):
+            raise AssertionError(f"Sorter.run on sorted keys ({label}) changed them")
+        short = "AlreadySorted" in plans
+        if short != label.startswith("256"):
+            raise AssertionError(f"Sorter.run sorted ({label}) plan: {plans}")
+        ms = cuda_ms(torch, lambda: sorter.run(nk))
+        print(f"Sorter.run sorted 2^25 u64 on the card, {label}: {ms:.4f} ms of device "
+              f"time (CUDA events, median of {REPS}); "
+              f"{'the AlreadySorted short circuit' if short else 'the full plan'}")
+        del nk, out
 
 
 def distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32,
@@ -523,6 +561,7 @@ def main() -> int:
         from rdst_tpu_torch import _build
         from rdst_tpu_torch import _planes as P
         from rdst_tpu_torch import config
+        from rdst_tpu_torch import keys as K
         from rdst_tpu_torch.ops import fused_merge as fm
         from rdst_tpu_torch.ops import fused_sort as fs
         from rdst_tpu_torch.ops import histogram as H
@@ -637,6 +676,32 @@ def main() -> int:
     check("multi_level_histogram", "level_histogram (one level)",
           lambda: H.histogram_cuda([w[1]], 1, 2),
           lambda: H.histogram_plain([w[1]], 1, 2), moved=hist_moved([w[1]]))
+    # Zipf(1.1) rank frequencies over 2^20 distinct random u64 keys; one hot
+    # key among equal ones; planes 12 bytes past a 16-byte boundary (the
+    # carved buckets of sorts/msb.py start at any word); the piece path's
+    # 10M keys of one word, 4 levels
+    pool = planes_u32(1 << 20, 2)
+    rank = torch.arange(1, (1 << 20) + 1, device=dev, dtype=torch.float64) ** -1.1
+    wz = [P.take(q, torch.multinomial(rank, n, replacement=True, generator=gen))
+          for q in pool]
+    del pool, rank
+    check("multi_level_histogram", "2^25 x 2 words, Zipf(1.1) over 2^20 keys",
+          lambda: H.histogram_cuda(wz, 8), lambda: H.histogram_plain(wz, 8),
+          moved=hist_moved(wz))
+    wh = [P.full(n, 0x01020304, torch.uint32, dev), P.full(n, 0x05060708, torch.uint32, dev)]
+    P.sview(wh[1])[n // 3] = 9
+    check("multi_level_histogram", "2^25 x 2 words, one key differs",
+          lambda: H.histogram_cuda(wh, 8), lambda: H.histogram_plain(wh, 8),
+          moved=hist_moved(wh))
+    w3 = [p[3:] for p in w]
+    check("multi_level_histogram", "2^25-3 x 2 words at word offset 3",
+          lambda: H.histogram_cuda(w3, 8), lambda: H.histogram_plain(w3, 8),
+          moved=hist_moved(w3))
+    w10 = planes_u32(10_000_000, 1)
+    check("multi_level_histogram", "10M x 1 word, 4 levels (the piece path's)",
+          lambda: H.histogram_cuda(w10, 4), lambda: H.histogram_plain(w10, 4),
+          moved=hist_moved(w10))
+    del wz, wh, w3, w10
     # B1' against torch.bincount of the same level's byte plane, made
     # outside the timed region: a yardstick the port never calls
     byte_plane = (P.widen(w[1]) >> 16) & 0xFF
@@ -825,6 +890,7 @@ def main() -> int:
           f"(median of {REPS}, numpy in and out)")
     sorter_headline(torch, P, x64, dev)
     del y64, ks, vs, yf, k32, v32, f64, order, folded, want, u
+    sorter_sorted(torch, P, K, rng, dev, drive)
 
     # the low-memory Regions path at the real gate: 2^30 int64 keys (39 bits
     # of entropy, so ~2^20 ties; the low bit set as the sign bit, so both
@@ -837,6 +903,13 @@ def main() -> int:
     planes_gib = n30 * 12 / GiB
     print(f"regions 2^30: {planes_gib:.1f} GiB of planes, gate "
           f"{config.low_mem_threshold_bytes / GiB:.1f} GiB")
+    # B1 at 2^30 x 2 words on the keys' normalized planes
+    w30 = list(K.normalize(keys, device=dev).words)
+    check("multi_level_histogram", "2^30 x 2 words (the Regions keys' planes)",
+          lambda: H.histogram_cuda(w30, 8), lambda: H.histogram_plain(w30, 8),
+          moved=hist_moved(w30))
+    del w30
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()

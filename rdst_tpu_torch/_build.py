@@ -18,6 +18,7 @@ beside it in the same module, only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -167,5 +168,6 @@ def check_cuda_planes(planes, dtypes) -> tuple[torch.device, int]:
     return dev, n
 
 
+@functools.cache
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count

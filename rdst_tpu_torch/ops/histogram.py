@@ -26,8 +26,9 @@ from rdst_tpu_torch import _planes as P
 RADIX = 256
 MAX_WORDS = 8  # kMaxWords in csrc/histogram.cu: keys of up to 32 bytes
 MAX_LEVELS = 32
-_THREADS = 512  # kThreads in csrc/histogram.cu
-_BLOCKS_PER_SM = 4
+# struct Work in csrc/histogram.cu, in int64 words: the counts of every
+# level, the first descent, the descent bits and the arrival counter
+_WORK_WORDS = MAX_LEVELS * RADIX + 2
 
 __all__ = [
     "HistogramResult", "multi_level_histogram", "level_histogram",
@@ -38,8 +39,12 @@ HISTOGRAM = _build.Kernel(
     "multi_level_histogram",
     "rdst_histogram",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_void_p],
 )
+
+# (device index, stream) -> the kernel's workspace on that stream
+_workspaces: dict[tuple[int, int], torch.Tensor] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,10 +110,24 @@ def histogram_plain(
     ])
 
 
+def _workspace(dev: torch.device, stream: ctypes.c_void_p) -> torch.Tensor:
+    """The kernel's cross-block workspace for one stream (64 KB).  Zeroed
+    once here; every launch leaves it zero, and launches on one stream run
+    in order.  It is kept for the life of the process: the streams PyTorch
+    makes come from a fixed pool per device, so there are few of them."""
+    key = (dev.index, stream.value or 0)
+    work = _workspaces.get(key)
+    if work is None:
+        work = torch.zeros(_WORK_WORDS, dtype=torch.int64, device=dev)
+        _workspaces[key] = work
+    return work
+
+
 def histogram_cuda(
     words: Sequence[torch.Tensor], n_levels: int, level0: int = 0
 ) -> torch.Tensor:
-    """Launch ``csrc/histogram.cu``; returns the int64 buffer on the card."""
+    """Launch ``csrc/histogram.cu``; returns the int64 buffer on the card.
+    Planes may start at any word: the kernel peels the unaligned head."""
     words = [w.contiguous() for w in words]
     _check(words, level0, n_levels)
     dev, n = _build.check_cuda_planes(words, (torch.uint32,))
@@ -116,10 +135,12 @@ def histogram_cuda(
         n_levels * RADIX + n_levels + 1, dtype=torch.int64, device=dev
     )
     ptrs = (ctypes.c_void_p * MAX_WORDS)(*[w.data_ptr() for w in words])
-    grid = max(1, min(-(-n // _THREADS), _build.sm_count(dev) * _BLOCKS_PER_SM))
+    stream = _build.stream_of(out)
     HISTOGRAM.launch(
         dev, ptrs, len(words), level0, n_levels, n,
-        ctypes.c_void_p(out.data_ptr()), grid, _build.stream_of(out),
+        ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(_workspace(dev, stream).data_ptr()),
+        _build.sm_count(dev), stream,
     )
     return out
 

@@ -3,13 +3,21 @@
 
     python3 scripts/torch_bitonic_ab.py --parent DIR [--reps 5] [--no-sorts]
                                         [--kernels B5,B6] [--sorter]
+                                        [--stages shuffle,regions]
     python3 scripts/torch_bitonic_ab.py --sizing
 
 DIR is an unpacked checkout of the commit to compare with (``git archive``
 of the parent commit, in a directory that .gitignore lists).  Two parts:
 
   kernels  DIR's csrc sources build into a library of their own, called
-           through DIR's C interfaces: B2/B3 through the plan interface of
+           through DIR's C interfaces: B1 through ``rdst_histogram`` (DIR's
+           grid of 4 blocks per SM; both trees' C interfaces called alike,
+           one call per timing and 20 back to back, and this tree's Python
+           wrapper beside them) at 2^25 x 2 words, 8 levels, on uniform,
+           presorted, all-equal and Zipf keys, at 2^30 x 2 and at 10M x 1
+           word, 4 levels, and B1' (2^25 x 1 word, one level) with
+           ``torch.bincount`` of the byte plane timed after each turn (a
+           yardstick neither tree calls); B2/B3 through the plan interface of
            ``rdst_bitonic_tail`` / ``rdst_bitonic_span`` (DIR from the
            B2/B3 redesign on), B5 through ``rdst_merge_tail`` (its
            shared-memory kernel, at DIR's two-CTA block and at this tree's
@@ -23,15 +31,18 @@ of the parent commit, in a directory that .gitignore lists).  Two parts:
            alone, at the sizes the stable 2^28 shuffle sends (recorded from
            one run of it), with one and three planes, and at even aligned
            sizes.  Bound: bytes read once and written once at 3.35 TB/s.
-  sorts    each tree in turn, parent, this, this, parent:
-           ``scripts/torch_shuffle_stages.py`` (the stable 2^28 shuffle over 8
+  sorts    each tree in turn, parent, this, this, parent, the scripts
+           ``--stages`` names: ``scripts/torch_shuffle_stages.py`` (the
+           stable 2^28 shuffle over 8
            shards: warm time and stage split, and the overlapped run's B4/B5
            time) and ``scripts/torch_regions_stages.py`` (the 2^30 Regions
            sort: chunk sorts, each merge's B4/B5 launches and time, copies),
            both this tree's scripts run on DIR's package with ``--root``;
            with ``--sorter`` also ``Sorter.run`` on 2^25 uniform u64 keys
            already on the card (device time under torch.profiler, B2 and B3
-           totals), each tree in a process of its own.
+           totals) and on sorted 2^25 u64 keys (keys whose every byte level
+           is nondecreasing, which take the AlreadySorted short circuit, and
+           uniform keys sorted), each tree in a process of its own.
 
 ``--sizing`` times this tree's ``fused_sort`` at the main paths' shapes
 (2^25 u64 keys; 2^25 u64 keys + u32 payload, stable: 4 planes; the
@@ -90,34 +101,47 @@ def cuda_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def build_parent(parent: Path, bitonic: bool) -> ctypes.CDLL:
-    """DIR's merge.cu, exchange.cu and util.cu (and bitonic.cu when B2/B3
-    are compared) as one library."""
+def build_parent(parent: Path, which: set[str]) -> ctypes.CDLL:
+    """DIR's sources of the kernels in ``which`` and util.cu as one library,
+    with the C interfaces this script calls bound: B1 ``rdst_histogram``,
+    B2/B3 the plan interface, B5 ``rdst_merge_tail`` and B6
+    ``rdst_remote_exchange`` (the last two as they stood before the B5/B6
+    redesign)."""
     from rdst_tpu_torch import _build
 
     csrc = parent / "rdst_tpu_torch" / "csrc"
-    names = ["merge.cu", "exchange.cu", "util.cu"] + (["bitonic.cu"] if bitonic else [])
+    sources = {"B1": "histogram.cu", "B2": "bitonic.cu", "B3": "bitonic.cu",
+               "B5": "merge.cu", "B6": "exchange.cu"}
+    names = sorted({sources[k] for k in which}) + ["util.cu"]
     out = ROOT / "build" / "parent_kernels.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build._nvcc(), *_build._FLAGS, "-o", str(out),
                     *[str(csrc / f) for f in names]], check=True)
     lib = ctypes.CDLL(str(out))
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if bitonic:
+    binds = []
+    if which & {"B2", "B3"}:
         from rdst_tpu_torch.ops import fused_sort as fs
 
-        lib.rdst_bitonic_tail.argtypes = fs.TAIL.argtypes
-        lib.rdst_bitonic_span.argtypes = fs.SPAN.argtypes
-        lib.rdst_bitonic_tail.restype = lib.rdst_bitonic_span.restype = i
-    lib.rdst_merge_tail.argtypes = [vp, vp, vp, i, i, ll, i, vp]
-    lib.rdst_remote_exchange.argtypes = [vp, vp, vp, vp, vp, i, ll, ll, vp, vp]
-    lib.rdst_merge_tail.restype = lib.rdst_remote_exchange.restype = i
+        binds += [("rdst_bitonic_tail", fs.TAIL.argtypes),
+                  ("rdst_bitonic_span", fs.SPAN.argtypes)]
+    if "B1" in which:
+        binds.append(("rdst_histogram", [vp, i, i, i, ll, vp, i, vp]))
+    if "B5" in which:
+        binds.append(("rdst_merge_tail", [vp, vp, vp, i, i, ll, i, vp]))
+    if "B6" in which:
+        binds.append(("rdst_remote_exchange", [vp, vp, vp, vp, vp, i, ll, ll, vp, vp]))
+    for symbol, argtypes in binds:
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = i
     return lib
 
 
-def compare(torch, P, label, fns, want, bound, reps):
+def compare(torch, P, label, fns, want, bound, reps, batch=1):
     """``fns``: (name, fn) pairs, parents first; each output must equal
-    ``want``; timed in turns, parents, these, these, parents."""
+    ``want``; timed in turns, parents, these, these, parents; with
+    ``batch``, the mean of that many calls back to back per timing."""
     for name, fn in fns:
         got = fn()
         torch.cuda.synchronize()
@@ -126,7 +150,10 @@ def compare(torch, P, label, fns, want, bound, reps):
     order = fns + fns[::-1]
     t = {}
     for name, fn in order:
-        t.setdefault(name, []).append(cuda_ms(torch, fn, reps))
+        def many(fn=fn):
+            for _ in range(batch):
+                fn()
+        t.setdefault(name, []).append(cuda_ms(torch, many, reps) / batch)
     print(f"{label}: " + "; ".join(
         f"{name} {' / '.join(f'{x:.4f}' for x in ts)} ms "
         f"({bound / statistics.mean(ts):.1%} of the bound)" for name, ts in t.items())
@@ -140,7 +167,7 @@ def kernels(parent: Path, reps: int, which: set[str]) -> None:
     from rdst_tpu_torch.ops import fused_merge as fm
     from rdst_tpu_torch.ops import fused_sort as fs
 
-    lib = build_parent(parent, bool(which & {"B2", "B3"}))
+    lib = build_parent(parent, which)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -201,8 +228,86 @@ def kernels(parent: Path, reps: int, which: set[str]) -> None:
                 del want
         del planes
         torch.cuda.empty_cache()
+    if "B1" in which:
+        histogram_ab(torch, P, lib, dev, gen, reps)
     if "B6" in which:
         exchange_ab(torch, P, lib, dev, gen, reps)
+
+
+def histogram_ab(torch, P, lib, dev, gen, reps):
+    """B1 and B1' of both builds on the same planes, in turns."""
+    from rdst_tpu_torch import _build
+    from rdst_tpu_torch.ops import histogram as H
+
+    def u32(n):
+        return P.narrow(torch.randint(0, 1 << 32, (n,), generator=gen, device=dev,
+                                      dtype=torch.int64), torch.uint32)
+
+    def planes(kind, n, nw):
+        if kind == "uniform":
+            return [u32(n) for _ in range(nw)]
+        if kind == "equal":
+            return [P.full(n, 0x01020304 + k, torch.uint32, dev) for k in range(nw)]
+        if kind == "zipf":  # 2^20 distinct random keys at Zipf(1.1) frequencies
+            rank = torch.arange(1, (1 << 20) + 1, device=dev, dtype=torch.float64) ** -1.1
+            pick = torch.multinomial(rank, n, replacement=True, generator=gen)
+            return [P.take(u32(1 << 20), pick) for _ in range(nw)]
+        key = torch.sort(torch.randint(0, 1 << 62, (n,), generator=gen, device=dev)).values
+        return [P.narrow(key >> 32, torch.uint32), P.narrow(key & 0xFFFFFFFF, torch.uint32)]
+
+    # both builds through their C interfaces, each call as its wrapper makes
+    # it (output buffer, pointer table; the parent's grid of 4 blocks of
+    # 512 threads per SM, this tree's workspace), without the Python checks
+    this_fn = _build.library().rdst_histogram
+    this_fn.argtypes = H.HISTOGRAM.argtypes
+    this_fn.restype = ctypes.c_int
+    sms = _build.sm_count(dev)
+
+    def parent(w, nl, l0):
+        n = int(w[0].shape[0])
+        out = torch.empty(nl * H.RADIX + nl + 1, dtype=torch.int64, device=dev)
+        grid = max(1, min(-(-n // 512), sms * 4))
+        ptrs = (ctypes.c_void_p * H.MAX_WORDS)(*[x.data_ptr() for x in w])
+        err = lib.rdst_histogram(ptrs, len(w), l0, nl, n, out.data_ptr(), grid,
+                                 _build.stream_of(out))
+        if err:
+            raise RuntimeError(f"parent B1: CUDA error {err}")
+        return [out]
+
+    def this(w, nl, l0):
+        n = int(w[0].shape[0])
+        out = torch.empty(nl * H.RADIX + nl + 1, dtype=torch.int64, device=dev)
+        ptrs = (ctypes.c_void_p * H.MAX_WORDS)(*[x.data_ptr() for x in w])
+        stream = _build.stream_of(out)
+        err = this_fn(ptrs, len(w), l0, nl, n, out.data_ptr(),
+                      H._workspace(dev, stream).data_ptr(), sms, stream)
+        if err:
+            raise RuntimeError(f"B1: CUDA error {err}")
+        return [out]
+
+    cases = [(f"2^25 x 2 words, 8 levels, {kind}", kind, 1 << 25, 2, 8, 0)
+             for kind in ("uniform", "presorted", "equal", "zipf")]
+    cases += [("B1' 2^25 x 1 word, level 2", "uniform", 1 << 25, 1, 1, 2),
+              ("2^30 x 2 words, 8 levels, uniform", "uniform", 1 << 30, 2, 8, 0),
+              ("10M x 1 word, 4 levels, uniform", "uniform", 10_000_000, 1, 4, 0)]
+    for label, kind, n, nw, nl, l0 in cases:
+        w = planes(kind, n, nw)
+        want = [H.histogram_plain(w, nl, l0)]
+        bound = (4 * nw * n + 8 * want[0].numel()) / HBM * 1e3
+        fns = [("parent", lambda: parent(w, nl, l0)), ("this", lambda: this(w, nl, l0))]
+        compare(torch, P, f"B1 [{label}], one call", fns, want, bound, reps)
+        compare(torch, P, f"B1 [{label}], 20 calls back to back", fns, want, bound,
+                reps, batch=20)
+        wrap = cuda_ms(torch, lambda: H.histogram_cuda(w, nl, l0), reps)
+        print(f"B1 [{label}]: this tree's wrapper histogram_cuda, one call {wrap:.4f} ms")
+        if nl == 1:
+            byte_plane = (P.widen(w[0]) >> (8 * l0)) & 0xFF
+            lib_ms = cuda_ms(torch, lambda: torch.bincount(byte_plane, minlength=256), reps)
+            print(f"B1 [{label}]: torch.bincount of the byte plane {lib_ms:.4f} ms "
+                  "(library yardstick)")
+            del byte_plane
+        del w, want
+        torch.cuda.empty_cache()
 
 
 def exchange_ab(torch, P, lib, dev, gen, reps, D=8, nl=1 << 25):
@@ -301,7 +406,8 @@ def exchange_ab(torch, P, lib, dev, gen, reps, D=8, nl=1 << 25):
 
 
 def sorter_run(reps: int) -> None:
-    """In a tree's own process: Sorter.run on 2^25 u64 keys on the card."""
+    """In a tree's own process: Sorter.run on 2^25 u64 keys on the card,
+    uniform, then sorted in two forms."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -311,7 +417,19 @@ def sorter_run(reps: int) -> None:
     from rdst_tpu_torch.ops import fused_sort as fs
     from rdst_tpu_torch.sorter import Sorter
 
-    x = np.random.default_rng(SEED).integers(0, 2**64, size=1 << 25, dtype=np.uint64)
+    rng = np.random.default_rng(SEED)
+    x = rng.integers(0, 2**64, size=1 << 25, dtype=np.uint64)
+    top = np.sort(rng.integers(0, 256, size=1 << 25, dtype=np.uint64))
+    for label, xs in (("256 top-byte values, every level nondecreasing (AlreadySorted)",
+                       (top << np.uint64(56)) | np.uint64(0x0001020304050607)),
+                      ("uniform keys sorted", np.sort(x))):
+        nks = keys.normalize(xs, device="cuda")
+        Sorter().run(nks)
+        torch.cuda.synchronize()
+        ms = cuda_ms(torch, lambda: Sorter().run(nks), reps)
+        print(f"Sorter.run sorted 2^25 u64, {label} [{fs.__file__}]: {ms:.3f} ms "
+              f"(CUDA events, median of {reps})")
+        del nks
     nk = keys.normalize(x, device="cuda")
     sorter = Sorter()
     sorter.run(nk)
@@ -378,7 +496,7 @@ def sizing(reps: int) -> None:
         config.bitonic_smem_bytes = old
 
 
-def sorts(parent: Path, reps: int, sorter: bool) -> None:
+def sorts(parent: Path, reps: int, sorter: bool, stages: set[str]) -> None:
     env = dict(os.environ)
     if sorter:
         for tree in (parent, ROOT, ROOT, parent):
@@ -388,6 +506,8 @@ def sorts(parent: Path, reps: int, sorter: bool) -> None:
                            check=True)
     for script, keep in (("torch_shuffle_stages.py", ("warm", "overlapped", "profiled")),
                          ("torch_regions_stages.py", ("call", "  ", "split"))):
+        if script.split("_")[1] not in stages:
+            continue
         for tree in (parent, ROOT, ROOT, parent):
             res = subprocess.run(
                 [sys.executable, str(ROOT / "scripts" / script), "--root", str(tree)],
@@ -406,7 +526,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--no-sorts", action="store_true", help="the kernels part only")
     ap.add_argument("--kernels", default="B5,B6",
-                    help="kernels to compare, of B2, B3, B5, B6")
+                    help="kernels to compare, of B1, B2, B3, B5, B6")
+    ap.add_argument("--stages", default="shuffle,regions",
+                    help="stage scripts to run on both trees, of shuffle, regions")
     ap.add_argument("--sorter", action="store_true",
                     help="also Sorter.run of both trees")
     ap.add_argument("--sizing", action="store_true",
@@ -432,7 +554,7 @@ def main() -> int:
     print(f"card: {smi.stdout.strip()}")
     kernels(args.parent.resolve(), args.reps, set(args.kernels.split(",")))
     if not args.no_sorts:
-        sorts(args.parent.resolve(), args.reps, args.sorter)
+        sorts(args.parent.resolve(), args.reps, args.sorter, set(args.stages.split(",")))
     return 0
 
 

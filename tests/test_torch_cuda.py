@@ -10,6 +10,8 @@ Kernel and plain version get identical tensors on the card and must agree
 bit for bit (integer planes: exact); sorts through the kernels must equal
 numpy's.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -49,18 +51,100 @@ def _same(a, b):
         assert torch.equal(P.sview(x), P.sview(y))
 
 
+# (level0, n_levels) pairs of the one-level and general instances
+_LEVEL_PAIRS = {1: [(0, 1), (2, 1), (3, 1), (1, 2), (0, 3)],
+                2: [(0, 7), (3, 1), (1, 5), (4, 4)],
+                3: [(5, 6), (0, 11)], 4: [(3, 1)], 5: [(0, 19)], 8: [(0, 31), (17, 9)]}
+
+
 @pytest.mark.parametrize("n", [1, 31, 33, 1000, 100_003])
 @pytest.mark.parametrize("n_words", [1, 2, 3, 4, 5, 8])
 def test_histogram_kernel(dev, n, n_words):
-    w = _planes(dev, n, [torch.uint32] * n_words, n + n_words, high=1 << 32)
-    w[0] = P.narrow(P.widen(w[0]) % 3, torch.uint32)
-    before = th.HISTOGRAM.launches
+    """Full keys and the (level0, n_levels) pairs of the other instances,
+    on planes that start at word offsets 0-3 (the carved buckets of
+    sorts/msb.py start anywhere), with all keys one but one (one hot); a
+    CUDA tensor never reaches the plain version."""
+    big = _planes(dev, n + 3, [torch.uint32] * n_words, n + n_words, high=1 << 32)
+    big[0] = P.narrow(P.widen(big[0]) % 3, torch.uint32)
+    hot = [P.full(n + 3, 0x01020304 + k, torch.uint32, dev) for k in range(n_words)]
+    P.sview(hot[-1])[n // 2] = 7
+    for off in range(4):
+        for planes in (big, hot):
+            w = [p[off:off + n] for p in planes]
+            before, plain = th.HISTOGRAM.launches, th.HISTOGRAM.plain_calls
+            got = [th.histogram_cuda(w, 4 * n_words)] + [
+                th.histogram_cuda(w, nl, l0) for l0, nl in _LEVEL_PAIRS[n_words]]
+            assert th.HISTOGRAM.launches == before + len(got)
+            assert th.HISTOGRAM.plain_calls == plain
+            _same(got, [th.histogram_plain(w, 4 * n_words)] + [
+                th.histogram_plain(w, nl, l0) for l0, nl in _LEVEL_PAIRS[n_words]])
+    # planes at different offsets from each other: some load word by word
+    w = [p[k % 4: k % 4 + n] for k, p in enumerate(big)]
     _same([th.histogram_cuda(w, 4 * n_words)], [th.histogram_plain(w, 4 * n_words)])
-    _same([th.histogram_cuda(w, 3, 1)], [th.histogram_plain(w, 3, 1)])
-    assert th.HISTOGRAM.launches == before + 2
-    s = [P.narrow(P.widen(w[-1]).sort().values, torch.uint32)]
+    s = [P.narrow(P.widen(big[-1][:n]).sort().values, torch.uint32)]
     res = th.multi_level_histogram(s, 4)
     assert res.sorted_prefix == n and res.level_sorted[3]
+    torch.cuda.synchronize()
+    for work in th._workspaces.values():  # every launch leaves it zero
+        assert int(work.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("n_words", [1, 2, 3])
+def test_histogram_kernel_zipf(dev, n_words):
+    """2^22 keys drawn from 2^20 distinct ones at Zipf(1.1) rank
+    frequencies (numpy, seeded), and the same keys sorted."""
+    rng = np.random.default_rng(n_words)
+    pool = rng.integers(0, 2**32, size=(n_words, 1 << 20), dtype=np.uint32)
+    rank = np.arange(1, (1 << 20) + 1, dtype=np.float64) ** -1.1
+    keys = pool[:, rng.choice(1 << 20, size=1 << 22, p=rank / rank.sum())]
+    for w in (keys, keys[:, np.lexsort(keys[::-1])]):
+        t = [torch.from_numpy(x.copy()).to(dev) for x in w]
+        _same([th.histogram_cuda(t, 4 * n_words)], [th.histogram_plain(t, 4 * n_words)])
+        _same([th.histogram_cuda(t[-1:], 1, 2)], [th.histogram_plain(t[-1:], 1, 2)])
+
+
+def test_histogram_kernel_streams(dev):
+    """Launches on the current stream and on a side stream, in turns and
+    unsynchronized: each stream has its own workspace, every output equals
+    the plain version, and each workspace is zero afterwards."""
+    w = _planes(dev, 1 << 20, [torch.uint32] * 2, 11, high=1 << 32)
+    want = th.histogram_plain(w, 8)
+    main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    got = []
+    for _ in range(3):
+        got.append(th.histogram_cuda(w, 8))
+        with torch.cuda.stream(side):
+            got.append(th.histogram_cuda(w, 8))
+    torch.cuda.synchronize(dev)
+    works = [th._workspaces[(dev.index, s.cuda_stream)] for s in (main, side)]
+    assert works[0].data_ptr() != works[1].data_ptr()
+    _same(got, [want] * len(got))
+    for work in works:
+        assert int(work.abs().sum()) == 0
+
+
+def test_histogram_build_has_no_spills(dev):
+    """Every histogram.cu instance builds without spills (nvcc -Xptxas -v);
+    the registers of each are printed."""
+    import re
+    import subprocess
+    import tempfile
+
+    from rdst_tpu_torch import _build
+
+    src = Path(_build.__file__).resolve().parent / "csrc" / "histogram.cu"
+    flags = [f for f in _build._FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run([_build._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+                              str(Path(tmp) / "h.o"), str(src)],
+                             capture_output=True, text=True, check=True)
+    regs = re.findall(r"Used (\d+) registers", res.stderr)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", res.stderr)
+    print(f"histogram.cu: {len(regs)} instances, registers {sorted(map(int, regs))}")
+    assert len(regs) >= 17 and len(spills) >= len(regs)
+    assert all(a == "0" and b == "0" for a, b in spills), res.stderr
+    assert _build.library().rdst_histogram_work_bytes() == 8 * th._WORK_WORDS
 
 
 U8, U16, U32 = torch.uint8, torch.uint16, torch.uint32
