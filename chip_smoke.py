@@ -45,6 +45,26 @@ Phases, each printing its own lines:
          with empty segments and one overflowing receiver; and B2/B3 at
          every shape the stable run launched them with, B4/B5 at the
          overlapped run's merge shapes;
+       - the table engine at TPC-H shape (``tpch_tables``: LINEITEM 2^26
+         rows and ORDERS 2^24, SF ~11.2, made on the card) on the same
+         mesh: Q1's ``distributed_filter``, Q18's inner aggregate through
+         ``distributed_group_aggregate`` (hash and range), the
+         lineitem-orders ``distributed_join`` (hash) and
+         ``distributed_sort_table`` of orders; ``Table.filter``,
+         ``group_aggregate``, ``join(orders)`` and ``sort_by`` on one
+         shard's share; ``jit_api.sort`` and ``argsort`` on 2^25 u64 under
+         ``torch.cuda.set_sync_debug_mode("error")``; ``batched_sort`` and
+         ``batched_top_k`` on 4096 rows of 4096 u32 with a u32 payload.
+         Each is bit-equal to an oracle of plain torch calls on the card
+         (``torch.unique`` with ``index_add_``/``scatter_reduce_``,
+         ``torch.sort`` with ``searchsorted``, boolean indexing, ``topk``),
+         holds every plain version's count (none runs on a CUDA tensor),
+         prints which of its shuffle sorts took B2/B3 and which
+         ``lex_sort`` (``shuffle.SORT_ROUTES``), then runs three times more
+         for its warm time (the median), rows per second and peak device
+         memory; after the paths, B2/B3 at every shape the table paths
+         launched them with and B6 at every exchange they made, each
+         against its plain version;
   4. one JSON line of the kernels, then the result line.  Its times are
      those of each kernel's most-launched shape on the shuffle (B2-B5), of
      B6 at the stable run's exchange, and of B1 at 2^25 x 2 words.
@@ -99,6 +119,7 @@ KERNEL_INFO = {
         "rdst_tpu_torch/csrc/exchange.cu", "rdst_tpu/parallel/remote_dma.py:225"),
 }
 GiB = 1 << 30
+WARM_CALLS = 3  # timed calls of each table path after its first
 
 
 def cuda_ms(torch, fn) -> float:
@@ -182,12 +203,12 @@ def record_shapes(fs, fm, seen):
             setattr(mod, attr, real)
 
 
-def check_recorded(fs, fm, seen, planes_of, check):
+def check_recorded(fs, fm, seen, planes_of, check, main=True):
     """Each kernel against its plain version at the shapes a path gave it:
     one case per (plane dtypes, length), the widest span trip or stride of
     that shape, on fresh random planes (the networks are oblivious, so
-    data does not change their work).  Each kernel's most-launched shape
-    gives the kernels line its times."""
+    data does not change their work).  With ``main``, each kernel's
+    most-launched shape gives the kernels line its times."""
     fns = {"bitonic_tail": (fs.tail_cuda, fs.tail_plain),
            "bitonic_span": (fs.span_cuda, fs.span_plain),
            "merge_stage": (fm.merge_stage_cuda, fm.merge_stage_plain),
@@ -213,7 +234,8 @@ def check_recorded(fs, fm, seen, planes_of, check):
                   f"{args}; {sum(c for _, c in sigs)} launches of this shape "
                   f"on the path",
                   lambda: kern(planes, n, *args), lambda: plain(planes, n, *args),
-                  main_shape=shape == top, ops=ce_ops(name, dtypes, n, args))
+                  main_shape=main and shape == top,
+                  ops=ce_ops(name, dtypes, n, args))
             del planes
 
 
@@ -547,6 +569,353 @@ def distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32,
     print(f"co-partition: bit-exact vs torch.sort; {int(found.sum())} of {n27} "
           "rows share a key with the 2^28 dataset, each on that key's shard")
     del aw, ac, akeys, bkeys, ashard, bshard, pos, found, g, bhi, blo, bpay
+    torch.cuda.empty_cache()
+
+
+def _lexsort(torch, cols):
+    """The permutation that sorts rows by ``cols`` (most significant
+    first): stable argsorts from the least significant column."""
+    idx = torch.argsort(cols[-1], stable=True)
+    for c in reversed(cols[:-1]):
+        idx = idx[torch.argsort(c[idx], stable=True)]
+    return idx
+
+
+def tpch_tables(torch, dev, gen, n_lineitem=1 << 26, n_orders=1 << 24):
+    """TPC-H's LINEITEM and ORDERS (Standard Specification rev. 3.0.1, §1.4
+    and §4.2.5) at their cardinality ratio, four columns each, made on the
+    card from ``gen``: orders' keys sparse as dbgen makes them (8 of every
+    32 used), 1-7 lines an order (uniform, about 4), the lines of all orders
+    in a random order (a table partitioned without regard to its key).
+    Prices in cents, dates in days since 1970-01-01."""
+    import datetime
+
+    day = datetime.date(1970, 1, 1)
+    start = (datetime.date(1992, 1, 1) - day).days
+    end = (datetime.date(1998, 8, 2) - day).days  # ENDDATE - 151 days
+    i = torch.arange(n_orders, device=dev)
+    sf = n_lineitem / 6_000_000
+    orders = {
+        "orderkey": (i // 8) * 32 + i % 8 + 1,
+        "custkey": torch.randint(1, int(150_000 * sf) + 1, (n_orders,), generator=gen,
+                                 device=dev, dtype=torch.int32),
+        "orderdate": torch.randint(start, end + 1, (n_orders,), generator=gen,
+                                   device=dev, dtype=torch.int32),
+    }
+    per_order = torch.randint(1, 8, (n_orders,), generator=gen, device=dev)
+    owner = torch.repeat_interleave(i, per_order)[:n_lineitem]
+    short = n_lineitem - owner.numel()
+    if short > 0:
+        owner = torch.cat([owner, torch.randint(0, n_orders, (short,), generator=gen,
+                                                device=dev)])
+    owner = owner[torch.randperm(n_lineitem, generator=gen, device=dev)]
+    qty = torch.randint(1, 51, (n_lineitem,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    retail = torch.randint(90_100, 209_900, (n_lineitem,), generator=gen, device=dev)
+    lineitem = {
+        "orderkey": orders["orderkey"][owner],
+        "quantity": qty,
+        "extendedprice": qty.to(torch.int64) * retail,
+        "shipdate": orders["orderdate"][owner] + torch.randint(
+            1, 122, (n_lineitem,), generator=gen, device=dev, dtype=torch.int32),
+    }
+    orders["totalprice"] = torch.zeros(n_orders, dtype=torch.int64, device=dev) \
+        .index_add_(0, owner, lineitem["extendedprice"])
+    orders = {c: orders[c] for c in ("orderkey", "custkey", "totalprice", "orderdate")}
+    # Q1's predicate: l_shipdate <= date '1998-12-01' - interval '90' day
+    cutoff = (datetime.date(1998, 9, 2) - day).days
+    return lineitem, orders, cutoff, sf
+
+
+def table_paths(torch, par, dev, gen, drive, planes_of, check, n_lineitem=1 << 26,
+                n_orders=1 << 24, n_sort=1 << 25, n_rows=4096):
+    """The table engine at TPC-H shape (``tpch_tables``) on a mesh of 8
+    shards on the card, and its single-card operators, ``jit_api`` and the
+    row-batched sorts.  Each path runs once with its launches counted
+    (``drive``) and the plain versions' counts held (no plain version may
+    run on a CUDA tensor), then ``WARM_CALLS`` times more, each timed on
+    the host clock to a synchronize (the median is the path's warm time),
+    with their peak device memory.  Every output is held
+    bit-equal against an oracle of plain torch calls on the card.  The
+    counted calls record the arguments of their B2/B3 launches
+    (``record_shapes``) and of every B6 launch; after the paths, each
+    kernel runs against its plain version at those shapes."""
+    import rdst_tpu_torch as rt
+    from rdst_tpu_torch import _build
+    from rdst_tpu_torch.ops import fused_merge as fm
+    from rdst_tpu_torch.ops import fused_sort as fs
+    from rdst_tpu_torch.parallel import remote_dma as rd
+    from rdst_tpu_torch.parallel import shuffle
+
+    D = 8
+    t_phase = time.perf_counter()
+    peaks = []
+    mesh = par.make_mesh(D, device=dev)
+    lineitem, orders, cutoff, sf = tpch_tables(torch, dev, gen, n_lineitem, n_orders)
+    n_l, n_o = lineitem["orderkey"].numel(), orders["orderkey"].numel()
+    li_b = sum(c.numel() * c.element_size() for c in lineitem.values())
+    print(f"table phase: TPC-H shape, SF {sf:.2f}: lineitem {n_l} rows "
+          f"({li_b / GiB:.2f} GiB), orders {n_o} rows; mesh of {D} shards on the card")
+
+    # the counted calls' B2-B5 launches by their arguments, and each B6
+    # launch: (path, each sender's plane dtypes and length, offsets, sizes,
+    # capacity)
+    seen, sent = {}, []
+    real_b6 = rd.remote_dma_exchange_cuda
+
+    def b6_recorder(label):
+        def rec(planes, offs, sizes, capacity):
+            sent.append((label, [([p.dtype for p in ps], int(ps[0].shape[0]))
+                                 for ps in planes],
+                         [o.clone() for o in offs], [z.clone() for z in sizes],
+                         capacity))
+            return real_b6(planes, offs, sizes, capacity)
+        return rec
+
+    def plain_calls():
+        return {k: v.plain_calls for k, v in _build.KERNELS.items()}
+
+    def run(label, rows, fn, need=(), exchanges=None, no_sync=False):
+        def call():
+            if not no_sync:
+                return fn()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        plain = plain_calls()
+        shuffle.SORT_ROUTES.clear()
+        rd.remote_dma_exchange_cuda = b6_recorder(label)
+        try:
+            with record_shapes(fs, fm, seen):
+                out, _ = drive(label, rows, call)
+        finally:
+            rd.remote_dma_exchange_cuda = real_b6
+        counts = {k: _build.KERNELS[k].launches for k in KERNEL_INFO}
+        missing = [k for k in need if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"path {label} launched no {missing}")
+        if exchanges is not None and counts["remote_exchange"] != exchanges:
+            raise AssertionError(f"path {label}: {counts['remote_exchange']} B6 "
+                                 f"launches for {exchanges} exchanges")
+        if plain_calls() != plain:
+            raise AssertionError(f"path {label} ran a plain version on the card")
+        routes = ", ".join(f"{c} x {k[0]} planes of {k[1]} rows by {k[2]}"
+                           for k, c in sorted(shuffle.SORT_ROUTES.items()))
+        print(f"path {label}: no plain version ran; shuffle sorts: {routes or 'none'}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(WARM_CALLS):
+            t0 = time.perf_counter()
+            again = call()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del again
+        peak = torch.cuda.max_memory_allocated()
+        peaks.append(peak)
+        dt = statistics.median(times)
+        print(f"path {label} warm: {dt * 1e3:.3f} ms (median of {WARM_CALLS}; "
+              f"{min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}), {rows / dt:,.0f} "
+              f"rows/s; peak device memory {peak} B ({peak / GiB:.2f} GiB), of which "
+              f"{base} B ({base / GiB:.2f} GiB) held before the calls")
+        return out
+
+    def same(label, got, want):
+        for name, (a, b) in zip(want, zip(got, want.values())):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"{label}: column {name} differs from its oracle")
+        print(f"{label}: bit-exact vs its torch oracle ({', '.join(want)})")
+
+    def dense(table, counts, names):
+        c = counts.tolist()
+        cap = table.n_rows // D
+        return [torch.cat([table[n][d * cap:d * cap + c[d]] for d in range(D)])
+                for n in names]
+
+    li = rt.Table(lineitem)
+    od = rt.Table(orders)
+
+    # 1. Q1's filter, shard by shard (no exchange)
+    mask = lineitem["shipdate"] <= cutoff
+    out, counts = run("table: distributed_filter lineitem, Q1's shipdate cut",
+                      n_l, lambda: par.distributed_filter(li, mask, mesh=mesh))
+    m2 = mask.view(D, -1)
+    want = {n: torch.cat([torch.cat([c.view(D, -1)[d][m2[d]], c.view(D, -1)[d][~m2[d]]])
+                          for d in range(D)]) for n, c in lineitem.items()}
+    same("distributed_filter (the whole static-length output)",
+         [out[n] for n in want], want)
+    if not torch.equal(counts, m2.sum(1).to(torch.int32)):
+        raise AssertionError("distributed_filter counts differ")
+    print(f"distributed_filter: {int(counts.sum())} of {n_l} rows kept "
+          f"({int(counts.sum()) / n_l:.4f})")
+    del out, want, m2
+
+    # 2. Q18's inner aggregate, hash and range partitioned
+    aggs = {"sum_qty": ("quantity", "sum"), "n": ("quantity", "count"),
+            "avg_qty": ("quantity", "mean"), "max_price": ("extendedprice", "max")}
+    keys, inv, cnt = torch.unique(lineitem["orderkey"], sorted=True,
+                                  return_inverse=True, return_counts=True)
+    s = torch.zeros_like(keys).index_add_(0, inv, lineitem["quantity"].to(torch.int64))
+    want = {"orderkey": keys, "sum_qty": s, "n": cnt.to(torch.int32),
+            "avg_qty": s.to(torch.float32) / cnt.to(torch.float32),
+            "max_price": torch.zeros_like(keys).scatter_reduce_(
+                0, inv, lineitem["extendedprice"], "amax", include_self=False)}
+    del inv, cnt, s
+    for part in ("hash", "range"):
+        out, n_groups = run(
+            f"table: distributed_group_aggregate lineitem by orderkey "
+            f"(Q18's inner aggregate), partition={part}", n_l,
+            lambda: par.distributed_group_aggregate(li, "orderkey", aggs, mesh=mesh,
+                                                    partition=part),
+            need=("bitonic_tail", "bitonic_span", "remote_exchange"), exchanges=1)
+        if int(n_groups) != keys.numel():
+            raise AssertionError(f"{n_groups} groups, want {keys.numel()}")
+        order = torch.sort(out["orderkey"]).indices
+        same(f"distributed_group_aggregate partition={part} ({keys.numel()} groups)",
+             [out[n][order] for n in want], want)
+        del out, order
+    del want, keys
+
+    # 3. the pk-fk join of Q3/Q18
+    out, matches = run("table: distributed_join lineitem x orders on orderkey, "
+                       "inner, partition=hash", n_l + n_o,
+                       lambda: par.distributed_join(li, od, "orderkey", mesh=mesh,
+                                                    partition="hash"),
+                       need=("remote_exchange",), exchanges=2)
+    ok, oi = torch.sort(orders["orderkey"])
+    at = oi[torch.searchsorted(ok, lineitem["orderkey"])]
+    del ok, oi
+    want = dict(lineitem, **{c: orders[c][at] for c in ("custkey", "totalprice",
+                                                        "orderdate")})
+    del at
+    if matches != n_l or out.n_rows != n_l or out.column_names != list(want):
+        raise AssertionError(f"join: {matches} matches, {out.n_rows} rows, "
+                             f"columns {out.column_names}")
+    sort_cols = ("orderkey", "extendedprice", "quantity", "shipdate")
+    g_idx = _lexsort(torch, [out[c] for c in sort_cols])
+    w_idx = _lexsort(torch, [want[c] for c in sort_cols])
+    same("distributed_join (rows ordered by every left column)",
+         [out[n][g_idx] for n in want], {n: v[w_idx] for n, v in want.items()})
+    del out, want, g_idx, w_idx
+
+    # 4. ORDER BY totalprice over the mesh
+    out, counts = run("table: distributed_sort_table orders by totalprice, stable",
+                      n_o, lambda: par.distributed_sort_table(
+                          od, "totalprice", mesh=mesh, stable=True),
+                      need=("bitonic_tail", "bitonic_span", "remote_exchange"),
+                      exchanges=1)
+    idx = torch.sort(orders["totalprice"], stable=True).indices
+    same("distributed_sort_table", dense(out, counts, list(orders)),
+         {n: c[idx] for n, c in orders.items()})
+    del out, idx
+
+    # 5. the single-card operators on one shard's share of lineitem
+    n1 = n_l // D
+    one = {n: c[:n1] for n, c in lineitem.items()}
+    t1 = rt.Table(one)
+    m1 = mask[:n1]
+    out, count = run("table: Table.filter on one shard", n1, lambda: t1.filter(m1))
+    same("Table.filter (the whole static-length output)", [out[n] for n in one],
+         {n: torch.cat([c[m1], c[~m1]]) for n, c in one.items()})
+    if int(count) != int(m1.sum()):
+        raise AssertionError("Table.filter count differs")
+    keys, inv, cnt = torch.unique(one["orderkey"], sorted=True, return_inverse=True,
+                                  return_counts=True)
+    s = torch.zeros_like(keys).index_add_(0, inv, one["quantity"].to(torch.int64))
+    want = {"orderkey": keys, "sum_qty": s, "n": cnt.to(torch.int32),
+            "avg_qty": s.to(torch.float32) / cnt.to(torch.float32),
+            "max_price": torch.zeros_like(keys).scatter_reduce_(
+                0, inv, one["extendedprice"], "amax", include_self=False)}
+    out, count = run("table: Table.group_aggregate on one shard", n1,
+                     lambda: t1.group_aggregate("orderkey", aggs))
+    g = int(count)
+    if g != keys.numel():
+        raise AssertionError("Table.group_aggregate count differs")
+    same("Table.group_aggregate", [out[n][:g] for n in want], want)
+    del inv, cnt, s, want
+    out, matches = run("table: Table.join(orders) on one shard, inner", n1 + n_o,
+                       lambda: t1.join(od, "orderkey"))
+    ok, oi = torch.sort(orders["orderkey"])
+    at = oi[torch.searchsorted(ok, one["orderkey"])]
+    same("Table.join (left order kept)", [out[n] for n in out.column_names],
+         dict(one, **{c: orders[c][at] for c in ("custkey", "totalprice", "orderdate")}))
+    if int(matches) != n1:
+        raise AssertionError("Table.join match count differs")
+    del ok, oi, at
+    out = run("table: Table.sort_by shipdate on one shard, stable", n1,
+              lambda: t1.sort_by("shipdate"))
+    idx = torch.sort(one["shipdate"], stable=True).indices
+    same("Table.sort_by", [out[n] for n in one], {n: c[idx] for n, c in one.items()})
+    del out, idx, t1, one, li, od, lineitem, orders, mask
+    torch.cuda.empty_cache()
+
+    # 6. jit_api on the card under sync debug mode "error"
+    n = n_sort
+    x = torch.empty(n, dtype=torch.int64, device=dev).random_(generator=gen)
+    xu = x.view(torch.uint64)
+    got = run(f"jit_api.sort 2^{n.bit_length() - 1} uniform u64, sync debug mode error", n,
+              lambda: rt.jit_api.sort(xu), need=("bitonic_tail", "bitonic_span"),
+              no_sync=True)
+    sign = -(1 << 63)
+    ref, order = torch.sort(x ^ sign, stable=True)
+    same("jit_api.sort", [got.view(torch.int64)], {"keys": ref ^ sign})
+    idx = run(f"jit_api.argsort 2^{n.bit_length() - 1} uniform u64, stable, sync debug "
+              "mode error", n,
+              lambda: rt.jit_api.argsort(xu), need=("bitonic_tail", "bitonic_span"),
+              no_sync=True)
+    same("jit_api.argsort", [idx.view(torch.int32).to(torch.int64)], {"index": order})
+    del x, xu, got, ref, order, idx
+
+    # 7. row-batched sorts: 4096 rows of 4096 u32 keys with a u32 payload
+    keys = torch.randint(0, 1 << 32, (n_rows, n_rows), generator=gen, device=dev) \
+        .to(torch.int32).view(torch.uint32)
+    pay = torch.randint(0, 1 << 32, (n_rows, n_rows), generator=gen, device=dev) \
+        .to(torch.int32).view(torch.uint32)
+
+    def widen(t):
+        return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+    pairs = torch.sort((widen(keys) << 32) | widen(pay), dim=-1).values
+    sk, (sp,) = run(f"batched_sort {n_rows} rows x {n_rows} u32 + u32 payload", keys.numel(),
+                    lambda: rt.batched_sort(keys, [pay]))
+    same("batched_sort (keys; (key, payload) pairs of each row)",
+         [widen(sk), torch.sort((widen(sk) << 32) | widen(sp), dim=-1).values],
+         {"keys": torch.sort(widen(keys), dim=-1).values, "pairs": pairs})
+    tk, (tp,) = run("batched_top_k k=64 on the same rows", keys.numel(),
+                    lambda: rt.batched_top_k(keys, 64, [pay]))
+    got_pairs = (widen(tk) << 32) | widen(tp)
+    at = torch.searchsorted(pairs, got_pairs).clamp_(max=pairs.shape[1] - 1)
+    same("batched_top_k (keys; each (key, payload) pair one of its row's)",
+         [widen(tk), torch.gather(pairs, 1, at)],
+         {"keys": torch.topk(widen(keys), 64, dim=-1).values, "pairs": got_pairs})
+    del keys, pay, pairs, sk, sp, tk, tp, got_pairs, at
+    torch.cuda.empty_cache()
+    print(f"table phase: {time.perf_counter() - t_phase:.1f} s; peak device memory "
+          f"of its paths {max(peaks)} B ({max(peaks) / GiB:.2f} GiB)")
+
+    # B2/B3 at every shape the table paths gave them, B6 at every exchange
+    # they made (on fresh random planes of the same dtypes and lengths)
+    if not {"bitonic_tail", "bitonic_span"} <= set(seen):
+        raise AssertionError(f"the table paths ran {sorted(seen)}")
+    check_recorded(fs, fm, seen, planes_of, check, main=False)
+
+    def flat(r):  # receive planes, demand and arrival counters as one list
+        recv, demand, arrived = r
+        return recv + [demand, arrived]
+
+    for label, senders, offs, sizes, cap in sent:
+        src = [planes_of(n, dtypes) for dtypes, n in senders]
+        k = len(src[0])
+        landed = int(rd.exchange_layout(torch.stack(sizes), cap).landed.sum())
+        check("remote_exchange", f"{label}: {D} x {D}, {k} planes, capacity {cap}",
+              lambda: flat(rd.remote_dma_exchange_cuda(src, offs, sizes, cap)),
+              lambda: flat(rd.remote_dma_exchange_plain(src, offs, sizes, cap)),
+              moved=lambda g: 4 * k * landed + nbytes(g))
+        del src
     torch.cuda.empty_cache()
 
 
@@ -982,6 +1351,7 @@ def main() -> int:
 
     distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32, planes_of,
                       drive, check)
+    table_paths(torch, par, dev, gen, drive, planes_of, check)
     print(f"launches on the paths: {launches}")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

@@ -25,7 +25,7 @@ import torch
 __all__ = [
     "UNSIGNED", "unsigned_of_width", "all_ones", "sview", "widen", "narrow",
     "complement", "where", "take", "flip", "cat", "interleave", "full",
-    "fill_like", "arange", "lex_gt", "lex_sort",
+    "fill_like", "arange", "lex_gt", "lex_argsort", "lex_sort",
 ]
 
 _SIGNED = {
@@ -159,6 +159,27 @@ def _packed_groups(keys: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     return out
 
 
+def lex_argsort(
+    keys: Sequence[torch.Tensor], stable: bool = False, dim: int = -1
+) -> torch.Tensor:
+    """The int64 permutation that sorts ``keys`` (most significant first)
+    along ``dim``.
+
+    Keys pack into int64 groups (:func:`_packed_groups`).  One group sorts
+    with ``torch.sort``; more chain stable argsorts from the least
+    significant group.  With ``stable=False`` tie order is whatever
+    ``torch.sort`` gives, as ``lax.sort(is_stable=False)`` leaves it to
+    XLA."""
+    groups = _packed_groups(keys)
+    if len(groups) == 1:
+        return torch.sort(groups[0], dim=dim, stable=stable)[1]
+    idx = torch.argsort(groups[-1], dim=dim, stable=True)
+    for g in reversed(groups[:-1]):
+        step = torch.argsort(torch.gather(g, dim, idx), dim=dim, stable=True)
+        idx = torch.gather(idx, dim, step)
+    return idx
+
+
 def lex_sort(
     planes: Sequence[torch.Tensor],
     num_keys: int,
@@ -166,20 +187,8 @@ def lex_sort(
     dim: int = -1,
 ) -> list[torch.Tensor]:
     """Sort ``planes`` along ``dim`` by the first ``num_keys`` (most
-    significant first); the rest ride along.
-
-    Keys pack into int64 groups (:func:`_packed_groups`).  One group sorts
-    with ``torch.sort``; more chain stable argsorts from the least
-    significant group.  Riders follow by gather.  With ``stable=False`` tie
-    order is whatever ``torch.sort`` gives, as ``lax.sort(is_stable=False)``
-    leaves it to XLA."""
+    significant first, :func:`lex_argsort`); the rest ride along by
+    gather."""
     planes = list(planes)
-    groups = _packed_groups(planes[:num_keys])
-    if len(groups) == 1:
-        _, idx = torch.sort(groups[0], dim=dim, stable=stable)
-    else:
-        idx = torch.argsort(groups[-1], dim=dim, stable=True)
-        for g in reversed(groups[:-1]):
-            step = torch.argsort(torch.gather(g, dim, idx), dim=dim, stable=True)
-            idx = torch.gather(idx, dim, step)
+    idx = lex_argsort(planes[:num_keys], stable, dim)
     return [take(p, idx, dim) for p in planes]

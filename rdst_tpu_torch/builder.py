@@ -82,10 +82,7 @@ class RadixSortBuilder:
     def _sort_device(self) -> torch.device:
         """A tensor's own device, else the requested one for numpy."""
         fields = self._data if isinstance(self._data, (list, tuple)) else [self._data]
-        for f in list(fields) + self._payloads:
-            if isinstance(f, torch.Tensor):
-                return f.device
-        return _keys.as_device(self._device)
+        return _keys.device_of(list(fields) + self._payloads, self._device)
 
     def sort(self):
         """Run the sort; returns sorted keys (and payloads if provided)."""

@@ -41,6 +41,7 @@ __all__ = [
     "digit_plane",
     "supported_dtypes",
     "as_device",
+    "device_of",
 ]
 
 _U32 = torch.uint32
@@ -84,6 +85,15 @@ def as_device(device) -> torch.device:
             "pass device='cpu' to sort on the host"
         )
     return dev
+
+
+def device_of(arrays, device) -> torch.device:
+    """The device of the first tensor among ``arrays``, else the one numpy
+    input goes to (:func:`as_device`)."""
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return as_device(device)
 
 
 def supported_dtypes() -> tuple[torch.dtype, ...]:

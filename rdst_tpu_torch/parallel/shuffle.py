@@ -36,6 +36,7 @@ No step of a call waits for the device except :func:`distributed_sort_auto`
 """
 from __future__ import annotations
 
+import collections
 from typing import Sequence
 
 import numpy as np
@@ -57,12 +58,20 @@ __all__ = [
 N_BUCKETS = 1 << 16
 _I64 = torch.int64
 
+#: Every per-shard sort by the route it took: ``(planes, rows, "B2/B3" or
+#: "lex_sort") -> calls``.  Never cleared here; a caller that prints the
+#: routes of one call clears it first.
+SORT_ROUTES: collections.Counter = collections.Counter()
+
 
 def _local_sort(planes, n_keys, stable):
     """Per-shard sort: the fused bitonic executor (B2/B3) when it takes the
     shard's shape, else ``lex_sort``."""
     words, payloads = list(planes[:n_keys]), list(planes[n_keys:])
-    if fused_sort_available(words, payloads, stable=stable):
+    fused = fused_sort_available(words, payloads, stable=stable)
+    SORT_ROUTES[(len(planes), int(planes[0].shape[0]),
+                 "B2/B3" if fused else "lex_sort")] += 1
+    if fused:
         out_w, out_p = fused_sort(words, payloads, stable=stable)
         return list(out_w) + list(out_p)
     return P.lex_sort(planes, n_keys, stable=stable)

@@ -574,3 +574,173 @@ def test_kernel_wrappers_raise_on_bad_input(dev):
     sizes = [torch.zeros(2, dtype=torch.int64, device=dev)] * 2
     with pytest.raises(TypeError):  # B6 carries u32 planes only
         rd.remote_dma_exchange_cuda([[P.widen(p[0])]] * 2, sizes, sizes, 16)
+
+
+# ---------------------------------------------------------------------------
+# jit_api, the table engine and the distributed table pipeline
+# ---------------------------------------------------------------------------
+
+
+class _NoSync:
+    """Raise on any synchronising CUDA call inside the block."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _plain_calls():
+    from rdst_tpu_torch import _build
+
+    return {k: v.plain_calls for k, v in _build.KERNELS.items()}
+
+
+@pytest.mark.parametrize("n", [1 << 10, 1 << 22])
+def test_jit_api_sort_has_no_host_sync(dev, n):
+    """``jit_api.sort`` and ``argsort`` on CUDA tensors under sync debug
+    mode "error": ``lex_sort`` at 2^10, the fused executor (B2/B3) at
+    2^22; bit-equal to torch.sort."""
+    from rdst_tpu_torch import jit_api
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n)
+    x = torch.empty(n, dtype=torch.int64, device=dev).random_(generator=g)
+    v = torch.arange(n, dtype=torch.int32, device=dev)
+    before = fs.TAIL.launches, fs.SPAN.launches
+    torch.cuda.synchronize()
+    with _NoSync():
+        ks, (vs,) = jit_api.sort(x.view(torch.uint64), payloads=[v], stable=True)
+        idx = jit_api.argsort(x)
+    torch.cuda.synchronize()
+    fused = fs.TAIL.launches > before[0] and fs.SPAN.launches > before[1]
+    assert fused == (n >= config.fused_min_elems)
+    ref, order = torch.sort(x ^ (-(1 << 63)), stable=True)
+    assert torch.equal(ks.view(torch.int64), ref ^ (-(1 << 63)))
+    assert torch.equal(vs, order.to(torch.int32))
+    assert torch.equal(idx.view(torch.int32).to(torch.int64),
+                       torch.sort(x, stable=True).indices)
+
+
+def test_jit_api_gradient_on_the_card(dev):
+    from rdst_tpu_torch import jit_api
+
+    rng = np.random.default_rng(40)
+    k = torch.from_numpy(rng.integers(0, 100, 1 << 22).astype(np.int32)).to(dev)
+    v = torch.from_numpy(rng.standard_normal(1 << 22).astype(np.float32)).to(dev)
+    v.requires_grad_()
+    _, (vs,) = jit_api.sort(k, payloads=[v])
+    _, (plain,) = jit_api.sort(k, payloads=[v.detach()])
+    assert torch.equal(vs.detach(), plain)
+    (grad,) = torch.autograd.grad((vs * vs).sum(), [v])
+    assert torch.equal(grad, 2 * v.detach())
+
+
+def _table(dev, n, seed, n_keys):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return {
+        "k": torch.randint(0, n_keys, (n,), generator=g, device=dev) * 97,
+        "q": torch.randint(1, 51, (n,), generator=g, device=dev, dtype=torch.int32),
+        "p": torch.randint(0, 1 << 40, (n,), generator=g, device=dev),
+    }
+
+
+@pytest.mark.parametrize("partition", ["hash", "range"])
+def test_distributed_group_aggregate_on_the_card(dev, monkeypatch, partition):
+    """2^20 rows on make_mesh(8) on the card: one B6 launch, B2/B3 in the
+    shuffle's sorts (``fused_min_elems`` lowered to the 2^17-row shards),
+    no plain version on a CUDA tensor; bit-equal to a torch.unique
+    oracle."""
+    from rdst_tpu_torch.table import Table
+
+    monkeypatch.setattr(config, "fused_min_elems", 1 << 14)
+
+    cols = _table(dev, 1 << 20, 41, 1 << 17)
+    aggs = {"s": ("q", "sum"), "n": ("q", "count"), "m": ("q", "mean"),
+            "mx": ("p", "max"), "mn": ("p", "min")}
+    plain = _plain_calls()
+    before = rd.EXCHANGE.launches, fs.TAIL.launches, fs.SPAN.launches
+    out, n_groups = tpar.distributed_group_aggregate(
+        Table(cols), "k", aggs, mesh=tpar.make_mesh(8), partition=partition)
+    assert rd.EXCHANGE.launches == before[0] + 1
+    assert fs.TAIL.launches > before[1] and fs.SPAN.launches > before[2]
+    assert _plain_calls() == plain
+    keys, inv, cnt = torch.unique(cols["k"], sorted=True, return_inverse=True,
+                                  return_counts=True)
+    s = torch.zeros_like(keys).index_add_(0, inv, cols["q"].to(torch.int64))
+    mx = torch.zeros_like(keys).scatter_reduce_(0, inv, cols["p"], "amax",
+                                                include_self=False)
+    mn = torch.zeros_like(keys).scatter_reduce_(0, inv, cols["p"], "amin",
+                                                include_self=False)
+    order = torch.sort(out["k"]).indices
+    assert int(n_groups) == keys.numel()
+    assert torch.equal(out["k"][order], keys)
+    assert torch.equal(out["s"][order], s)
+    assert torch.equal(out["n"][order], cnt.to(torch.int32))
+    assert torch.equal(out["m"][order], s.to(torch.float32) / cnt.to(torch.float32))
+    assert torch.equal(out["mx"][order], mx) and torch.equal(out["mn"][order], mn)
+
+
+@pytest.mark.parametrize("partition", ["hash", "range"])
+def test_distributed_join_on_the_card(dev, partition):
+    """A pk-fk join of 2^20 fact rows and 2^18 dimension rows on
+    make_mesh(8) on the card: one B6 launch per exchange (two), no plain
+    version on a CUDA tensor; bit-equal to a torch.searchsorted oracle."""
+    from rdst_tpu_torch.table import Table
+
+    fact = _table(dev, 1 << 20, 42, 1 << 18)
+    g = torch.Generator(device=dev)
+    g.manual_seed(43)
+    dim = {"k": torch.randperm(1 << 18, generator=g, device=dev) * 97,
+           "d": torch.randint(0, 1 << 30, (1 << 18,), generator=g, device=dev,
+                              dtype=torch.int32)}
+    plain = _plain_calls()
+    before = rd.EXCHANGE.launches
+    out, matches = tpar.distributed_join(Table(fact), Table(dim), "k",
+                                         mesh=tpar.make_mesh(8),
+                                         partition=partition)
+    assert rd.EXCHANGE.launches == before + 2
+    assert _plain_calls() == plain
+    assert matches == out.n_rows == 1 << 20
+    dk, di = torch.sort(dim["k"])
+    want_d = dim["d"][di][torch.searchsorted(dk, fact["k"])]
+
+    def rows(t, d):  # rows in one order: by (k, p, q)
+        idx = torch.argsort(t["q"], stable=True)
+        for c in ("p", "k"):
+            idx = idx[torch.argsort(t[c][idx], stable=True)]
+        return [t[c][idx] for c in ("k", "q", "p")] + [d[idx]]
+
+    got = rows({c: out[c] for c in ("k", "q", "p")}, out["d"])
+    for a, b in zip(got, rows(fact, want_d)):
+        assert torch.equal(a, b)
+
+
+def test_table_ops_on_the_card(dev):
+    """The single-card operators on CUDA tensors equal the same calls on
+    the CPU, and launch no kernel."""
+    from rdst_tpu_torch import _build
+    from rdst_tpu_torch.table import Table
+
+    cols = _table(dev, 1 << 18, 44, 1 << 12)
+    dim = {"k": torch.arange(1 << 12, device=dev) * 97,
+           "d": torch.arange(1 << 12, device=dev, dtype=torch.int32)}
+    t, d = Table(cols), Table(dim)
+    tc, dc = (Table({k: v.cpu() for k, v in x.items()}) for x in (cols, dim))
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    aggs = {"s": ("q", "sum"), "mx": ("p", "max"), "m": ("q", "mean")}
+    pairs = [
+        (t.sort_by(["k", "p"]), tc.sort_by(["k", "p"])),
+        (t.filter(cols["q"] > 25)[0], tc.filter(cols["q"].cpu() > 25)[0]),
+        (t.group_aggregate("k", aggs)[0], tc.group_aggregate("k", aggs)[0]),
+        (t.join(d, "k")[0], tc.join(dc, "k")[0]),
+        (t.join(d, "k", how="left")[0], tc.join(dc, "k", how="left")[0]),
+    ]
+    assert {k: v.launches for k, v in _build.KERNELS.items()} == launches
+    for a, b in pairs:
+        assert a.column_names == b.column_names and a.n_rows == b.n_rows
+        for c in a.column_names:
+            assert a[c].device.type == "cuda"
+            assert torch.equal(a[c].cpu(), b[c])
