@@ -65,6 +65,18 @@ Phases, each printing its own lines:
          memory; after the paths, B2/B3 at every shape the table paths
          launched them with and B6 at every exchange they made, each
          against its plain version;
+       - the native host runtime (``native/host.py``), built with g++: its
+         sorts at 2^20 and 2^10 keys and its histogram against their numpy
+         versions, and the time a thread takes to start;
+       - the crossover: the builder's host path against its device path,
+         numpy in and out, for five calls at every power of two from 2 to
+         2^22 (host clock); the host path must launch no kernel;
+       - the trace, in a fresh process (``chip_smoke.py --trace``): one
+         ``Sorter.run`` of 2^25 u64 keys on the card inside
+         ``utils.trace.profile_to``, whose trace must hold the B1, B2 and
+         B3 kernels as often as their launches were counted;
+       - every ``examples/torch_*.py`` with ``--device cuda``, all started
+         together, each of which must exit 0;
   4. one JSON line of the kernels, then the result line.  Its times are
      those of each kernel's most-launched shape on the shuffle (B2-B5), of
      B6 at the stable run's exchange, and of B1 at 2^25 x 2 words.
@@ -91,9 +103,11 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -919,7 +933,327 @@ def table_paths(torch, par, dev, gen, drive, planes_of, check, n_lineitem=1 << 2
     torch.cuda.empty_cache()
 
 
+def cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo names it: its model name, vendor,
+    family and model (a sandboxed kernel may report the name as unknown)."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                info.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    return (f"{info.get('model name', 'unknown')} ({info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')})")
+
+
+def host_runtime(rng):
+    """The native host runtime (``native/host.py``): built with g++ from the
+    checkout, each sort bit-equal to its numpy version at 2^20 keys (u32,
+    u64, and both with a u32 payload, whose order among equal keys the
+    stable sort fixes), and the byte histogram at every level of a u32 key.
+    Times: host clock, median of REPS, each on a fresh copy."""
+    from rdst_tpu_torch.native import host
+
+    built = host._target(host._compiler()).exists()
+    t0 = time.perf_counter()
+    host.available()
+    print(f"host runtime: {'loaded (built before)' if built else 'built with g++ and loaded'}"
+          f" in {time.perf_counter() - t0:.2f} s ({cpu_model()}, os.cpu_count() "
+          f"{os.cpu_count()})")
+
+    def spawn():
+        t = threading.Thread(target=lambda: None)
+        t.start()
+        t.join()
+
+    spawn_ms = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        spawn()
+        spawn_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"host: one thread started and joined in {statistics.median(spawn_ms):.4f} ms "
+          "(median of 21; the C++ sort starts its threads twice in each byte pass)")
+    for n, label, dtype, pairs in ((1 << 20, "u32", np.uint32, False),
+                                   (1 << 20, "u64", np.uint64, False),
+                                   (1 << 10, "u32", np.uint32, False),
+                                   (1 << 10, "u64", np.uint64, False),
+                                   (1 << 20, "u32 pairs", np.uint32, True),
+                                   (1 << 20, "u64 pairs", np.uint64, True)):
+        high = 1 << 12 if pairs else np.iinfo(dtype).max  # ties, for the payload
+        k = rng.integers(0, high, n, endpoint=not pairs, dtype=np.uint64).astype(dtype)
+        v = np.arange(n, dtype=np.uint32) if pairs else None
+
+        def args():
+            return k.copy(), (v.copy() if pairs else None)
+
+        got, want = host.host_radix_sort(*args()), host.host_radix_sort_plain(*args())
+        for a, b in zip(got, want):
+            if (a is None) != (b is None) or (a is not None and not (
+                    a.dtype == b.dtype and np.array_equal(a, b))):
+                raise AssertionError(f"host_radix_sort {label} differs from its "
+                                     "numpy version")
+
+        def timed(fn):
+            times = []
+            for _ in range(REPS):
+                a = args()
+                t0 = time.perf_counter()
+                fn(*a)
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        ms, plain_ms = timed(host.host_radix_sort), timed(host.host_radix_sort_plain)
+        print(f"host_radix_sort 2^{n.bit_length() - 1} {label}: bit-equal to its numpy version; "
+              f"{ms:.4f} ms, numpy stable argsort {plain_ms:.4f} ms (host clock, "
+              f"median of {REPS})")
+    x = rng.integers(0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)
+    for level in range(4):
+        if not np.array_equal(host.host_histogram(x, level),
+                              host.host_histogram_plain(x, level)):
+            raise AssertionError(f"host_histogram level {level} differs from bincount")
+    print("host_histogram 2^20 u32, levels 0-3: equal to np.bincount")
+
+
+CROSSOVER_SIZES = [1 << e for e in range(1, 23)]
+
+
+def crossover(rt, config, _build, rng, launches):
+    """The builder's host path against its device path, numpy in and numpy
+    out, at every power of two from 2 to 2^22: ``radix_sort_unstable`` on
+    u32, u64 and f64, ``sort_key_value(stable=True)`` of u32 keys with a
+    u32 payload, and stable ``argsort`` of u64.  Each warm, the median of
+    REPS on the host clock; the host path with ``host_sort_max`` above the
+    size, the device path with it 0.  Every result equals numpy's.  The host
+    path's launches are counted and must be 0; the device path's are the
+    phase's, B1 among them above ``sorter.COMPARATIVE_CUTOFF`` keys (below
+    it the Sorter sorts without a histogram)."""
+    from rdst_tpu_torch.sorter import COMPARATIVE_CUTOFF
+
+    calls = {
+        "radix_sort_unstable u32": lambda n: (
+            (rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),),
+            lambda x: rt.radix_sort_unstable(x), lambda x: np.sort(x)),
+        "radix_sort_unstable u64": lambda n: (
+            (rng.integers(0, 2**64, n, dtype=np.uint64),),
+            lambda x: rt.radix_sort_unstable(x), lambda x: np.sort(x)),
+        "radix_sort_unstable f64": lambda n: (
+            (rng.standard_normal(n),), lambda x: rt.radix_sort_unstable(x),
+            lambda x: np.sort(x)),
+        "sort_key_value u32 + u32, stable": lambda n: (
+            (rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
+             rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)),
+            lambda k, v: rt.sort_key_value(k, v, stable=True),
+            lambda k, v: (k[np.argsort(k, kind="stable")], v[np.argsort(k, kind="stable")])),
+        "argsort u64, stable": lambda n: (
+            (rng.integers(0, 2**64, n, dtype=np.uint64),), lambda x: rt.argsort(x),
+            lambda x: np.argsort(x, kind="stable")),
+    }
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(same(x, y) for x, y in zip(a, b))
+        return np.array_equal(a, b)
+
+    def zero():
+        for k in _build.KERNELS.values():
+            k.launches = 0
+
+    def counts():
+        return {name: k.launches for name, k in _build.KERNELS.items()}
+
+    saved = config.host_sort_max
+    table = {}
+    dev_counts = {name: 0 for name in _build.KERNELS}
+    t_phase = time.perf_counter()
+    try:
+        for label, make in calls.items():
+            for n in CROSSOVER_SIZES:
+                args, fn, oracle = make(n)
+                want = oracle(*args)
+                row = {}
+                for path, limit in (("host", 1 << 30), ("device", 0)):
+                    config.host_sort_max = limit
+                    zero()
+                    got = fn(*args)  # warm
+                    if not same(got, want):
+                        raise AssertionError(f"{label} 2^{n.bit_length() - 1} "
+                                             f"{path} path differs from numpy")
+                    times = []
+                    for _ in range(REPS):
+                        t0 = time.perf_counter()
+                        fn(*args)
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    row[path] = statistics.median(times)
+                    c = counts()
+                    if path == "host" and any(c.values()):
+                        raise AssertionError(f"{label} 2^{n.bit_length() - 1}: the host "
+                                             f"path launched kernels: {c}")
+                    if path == "device":
+                        if n > COMPARATIVE_CUTOFF and c["multi_level_histogram"] <= 0:
+                            raise AssertionError(f"{label} 2^{n.bit_length() - 1}: the "
+                                                 "device path launched no B1")
+                        for name in dev_counts:
+                            dev_counts[name] += c[name]
+                table[label, n] = row
+    finally:
+        config.host_sort_max = saved
+    for name in KERNEL_INFO:
+        launches[name] += dev_counts.get(name, 0)
+    print(f"crossover: host path vs device path, numpy in and out, host clock "
+          f"(ms, median of {REPS}, warm); host CPU {cpu_model()}, os.cpu_count() "
+          f"{os.cpu_count()}; host-path launches 0 at every size; device-path "
+          f"launches {dev_counts}")
+    print("crossover: size | " + " | ".join(f"{label} host / device" for label in calls))
+    ok_at = {}
+    for n in CROSSOVER_SIZES:
+        rows = [table[label, n] for label in calls]
+        ok_at[n] = all(r["host"] <= r["device"] for r in rows)
+        print(f"crossover: 2^{n.bit_length() - 1} | " + " | ".join(
+            f"{r['host']:.4f} / {r['device']:.4f}" for r in rows)
+            + f" | host no slower for every call: {ok_at[n]}")
+    largest = max((n for n in CROSSOVER_SIZES if ok_at[n]), default=0)
+    prefix = 0
+    for n in CROSSOVER_SIZES:
+        if not ok_at[n]:
+            break
+        prefix = n
+    print(f"crossover: the largest size at which the host path is no slower for "
+          f"every call: {largest}; the largest below which it is no slower at every "
+          f"size: {prefix}; config.host_sort_max is {saved}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def trace_phase(launches):
+    """The trace phase, run in a fresh process (``chip_smoke.py --trace``,
+    :func:`trace_child`): on the card's machine a process whose CUDA context
+    had run for a minute or two dropped the first kernels of a trace, while a
+    fresh one kept every kernel (``scripts/torch_trace_age.py``).  The
+    child's launch counts are the phase's."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace"], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if r.returncode != 0:
+        raise AssertionError(f"the trace phase failed ({r.returncode}):\n{r.stderr[-3000:]}")
+    counted = json.loads(lines[-1])["launches"]
+    for name in KERNEL_INFO:
+        launches[name] += counted[name]
+
+
+def trace_child() -> int:
+    """One warm ``Sorter.run`` on 2^25 u64 keys already on the card inside
+    ``utils.trace.profile_to``, with CUDA events around it and every launch
+    count set to 0 just before it.  The trace's kernel events must name the
+    B1, B2 and B3 kernels (``hist_kernel`` of csrc/histogram.cu,
+    ``tail_kernel`` and ``span_kernel`` of csrc/bitonic.cu), with as many
+    events of each as its launches were counted.  The last line printed is
+    the launch counts, as JSON."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --trace: CUDA is not available", file=sys.stderr)
+        return 2
+    from rdst_tpu_torch import _build
+    from rdst_tpu_torch import _planes as P
+    from rdst_tpu_torch import keys
+    from rdst_tpu_torch import parallel  # noqa: F401  (B6's counter)
+    from rdst_tpu_torch.sorter import Sorter
+    from rdst_tpu_torch.utils.trace import profile_to
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    x = torch.empty(1 << 25, dtype=torch.int64, device=dev).random_(generator=gen)
+    nk = keys.normalize(x.view(torch.uint64), device=dev)
+    sorter = Sorter()
+    sorter.run(nk)  # warm
+    torch.cuda.synchronize()
+    logdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                          "chip_smoke_trace")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    with profile_to(logdir) as path:
+        ev[0].record()
+        out, _ = sorter.run(nk)
+        ev[1].record()
+    counted = {name: _build.KERNELS[name].launches for name in KERNEL_INFO}
+    event_ms = ev[0].elapsed_time(ev[1])
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    want = {"hist_kernel": counted["multi_level_histogram"],
+            "tail_kernel": counted["bitonic_tail"],
+            "span_kernel": counted["bitonic_span"]}
+    if counted["merge_tail"] or counted["merge_stage"]:
+        raise AssertionError(f"Sorter.run merged: {counted}")
+    found, total_ms = {}, 0.0
+    for e in events:
+        total_ms += e["dur"] / 1e3
+        for k in want:
+            if k in e["name"]:
+                n, ms = found.get(k, (0, 0.0))
+                found[k] = (n + 1, ms + e["dur"] / 1e3)
+    for k, n in want.items():
+        if n <= 0 or found.get(k, (0, 0.0))[0] != n:
+            order = sorted(events, key=lambda e: e["ts"])
+            raise AssertionError(
+                f"trace: {found.get(k, (0, 0.0))[0]} {k} events for {n} launches "
+                f"counted ({len(events)} kernel events; first "
+                f"{[e['name'][:48] for e in order[:4]]})")
+    ref = torch.sort(x ^ -(1 << 63)).values ^ -(1 << 63)
+    got = (P.widen(out.words[0]) << 32) | P.widen(out.words[1])
+    if not torch.equal(got, ref):
+        raise AssertionError("the traced Sorter.run differs from torch.sort")
+    print(f"path trace: Sorter.run 2^25 u64 on the card under profile_to, in a fresh "
+          f"process; launches {counted}")
+    print(f"trace: {os.path.relpath(path)} ({os.path.getsize(path)} B): "
+          + ", ".join(f"{k} {found[k][0]} events, {found[k][1]:.4f} ms" for k in want)
+          + f"; every kernel event {total_ms:.4f} ms in {len(events)}; the call "
+          f"{event_ms:.4f} ms (CUDA events, under the profiler); bit-exact vs torch.sort")
+    print(json.dumps({"launches": counted}))
+    return 0
+
+
+def run_examples():
+    """Every ``examples/torch_*.py`` with ``--device cuda``, all started
+    together, each in its own process; each must exit 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    names = sorted(f for f in os.listdir(os.path.join(root, "examples"))
+                   if f.startswith("torch_") and f.endswith(".py"))
+    if len(names) != 7:
+        raise AssertionError(f"examples: {names}")
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join("examples", f),
+                               "--device", "cuda"], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for f in names]
+    failed = []
+    try:
+        for f, p in zip(names, procs):
+            out, err = p.communicate(timeout=300)
+            last = out.strip().splitlines()[-1] if out.strip() else ""
+            print(f"example {f} --device cuda: exit {p.returncode}; {last}")
+            if p.returncode != 0:
+                failed.append(f"{f}: {err[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError("examples failed:\n" + "\n".join(failed))
+    print(f"examples: {len(names)} exited 0 on the card in "
+          f"{time.perf_counter() - t0:.1f} s (run together)")
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--trace"]:
+        return trace_child()
     import torch
 
     if not torch.cuda.is_available():
@@ -1352,6 +1686,10 @@ def main() -> int:
     distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32, planes_of,
                       drive, check)
     table_paths(torch, par, dev, gen, drive, planes_of, check)
+    host_runtime(rng)
+    crossover(rt, config, _build, rng, launches)
+    trace_phase(launches)
+    run_examples()
     print(f"launches on the paths: {launches}")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

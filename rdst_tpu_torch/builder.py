@@ -9,8 +9,12 @@ Port of ``rdst_tpu/builder.py`` with torch tensors in place of jax arrays:
 
 Numpy input goes to ``device`` (default ``"cuda"``; raises when CUDA is
 absent) and comes back as numpy; a tensor sorts on its own device and comes
-back as tensors there.  Every sort takes the device path: the JAX package's
-host fast path for small numpy inputs (``_try_host_sort``) is ROADMAP A10.
+back as tensors there.  A small 1-D numpy input (at most
+``config.host_sort_max`` elements, under a built-in tuner) sorts on the C++
+host runtime instead (``_try_host_sort``, ``native/host.py``), as in the JAX
+package; the limit is 0 by default, since the card was faster at every size
+measured (``config.py``).  The device is resolved first all the same, so
+``device="cuda"`` without CUDA raises at every size.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from rdst_tpu_torch import _planes as P
+from rdst_tpu_torch import config
 from rdst_tpu_torch import keys as _keys
 from rdst_tpu_torch.sorter import Sorter
 from rdst_tpu_torch.tuner import (
@@ -84,6 +89,52 @@ class RadixSortBuilder:
         fields = self._data if isinstance(self._data, (list, tuple)) else [self._data]
         return _keys.device_of(list(fields) + self._payloads, self._device)
 
+    def _try_host_sort(self, n: int):
+        """The host path for small numpy inputs (``rdst_tpu/builder.py``
+        ``_try_host_sort``): the C++ runtime sorts them without a round trip
+        to the card, with the same normalization.  Only the built-in tuners
+        route here (a forced Algorithm or a custom tuner is a request for the
+        device plans).  The device is resolved first, so a request for an
+        absent card raises here too.  Returns the result, or None to go on
+        to the device."""
+        from rdst_tpu_torch.native import host as _host
+
+        self._sort_device()
+        if n > config.host_sort_max or config.host_sort_max <= 0:
+            return None
+        if type(self._tuner) not in (
+            StandardTuner, LowMemoryTuner, SingleThreadedTuner
+        ):
+            return None
+        data = self._data
+        if not isinstance(data, np.ndarray) or data.ndim != 1:
+            return None
+        dt = data.dtype
+        if dt.kind not in "uif" or dt.itemsize > 8:
+            return None
+        if not all(
+            isinstance(p, np.ndarray) and p.ndim == 1 and p.dtype.itemsize <= 4
+            for p in self._payloads
+        ):
+            return None
+
+        u = _host_fold(data)  # a new array: the host sort is in place
+        if len(self._payloads) == 1 and self._payloads[0].dtype.itemsize == 4:
+            pw = self._payloads[0].view(np.uint32).copy()
+            _host.host_radix_sort(u, pw)
+            out_payloads = (pw.view(self._payloads[0].dtype),)
+        elif self._payloads:
+            order = np.arange(n, dtype=np.uint32)
+            _host.host_radix_sort(u, order)
+            out_payloads = tuple(p[order] for p in self._payloads)
+        else:
+            _host.host_radix_sort(u)
+            out_payloads = ()
+        keys_out = _host_unfold(u, dt)
+        if self._payloads:
+            return keys_out, out_payloads
+        return keys_out
+
     def sort(self):
         """Run the sort; returns sorted keys (and payloads if provided)."""
         data = self._data
@@ -96,6 +147,9 @@ class RadixSortBuilder:
                 return data, tuple(self._payloads)
             return data
 
+        host = self._try_host_sort(n)
+        if host is not None:
+            return host
         dev = self._sort_device()
         nk = _keys.normalize(data, device=dev)
         payload_info = [
@@ -125,6 +179,41 @@ class RadixSortBuilder:
         if want_numpy:
             out_payloads = [p.cpu().numpy() for p in out_payloads]
         return sorted_keys, tuple(out_payloads)
+
+
+def _host_fold(data: np.ndarray) -> np.ndarray:
+    """A 1-D numpy key as a new u32 (up to 4 bytes) or u64 array whose
+    unsigned order is the key's: signed keys with the sign bit flipped,
+    floats folded to IEEE total order by :func:`keys._float_fold`."""
+    dt = data.dtype
+    bits = dt.itemsize * 8
+    wide = np.uint64 if bits == 64 else np.uint32
+    if dt.kind == "u":
+        return data.astype(wide)
+    t = torch.from_numpy(np.ascontiguousarray(data))
+    if dt.kind == "i":
+        v = t.to(torch.int64) + (1 << (bits - 1)) if bits < 64 else t ^ _keys._I64_MIN
+    elif bits < 64:
+        v = _keys._float_fold(_keys._bits_of(t), bits)
+    else:
+        v = _keys._float_fold(t.view(torch.int64), 64)
+    v = v.numpy()
+    return v.view(np.uint64) if bits == 64 else v.astype(np.uint32)
+
+
+def _host_unfold(u: np.ndarray, dt: np.dtype) -> np.ndarray:
+    """Invert :func:`_host_fold` into an array of dtype ``dt``."""
+    bits = dt.itemsize * 8
+    if dt.kind == "u":
+        return u.astype(dt)
+    t = torch.from_numpy(u.view(np.int64) if bits == 64 else u.astype(np.int64))
+    if dt.kind == "i":
+        v = t - (1 << (bits - 1)) if bits < 64 else t ^ _keys._I64_MIN
+        return v.numpy().astype(dt)
+    v = _keys._float_unfold(t, bits).numpy()
+    if bits == 64:
+        return v.view(dt)
+    return v.astype(f"uint{bits}").view(dt)
 
 
 def _length_of(data) -> int:
@@ -210,5 +299,11 @@ def argsort(keys_arr, *, stable: bool = True, device="cuda"):
     if not stable:
         _, out = sort_key_value(keys_arr, idx, stable=False, device=device)
         return out
+    if len(fields) == 1 and isinstance(fields[0], np.ndarray):
+        # a small single-key numpy input takes the host path: the host LSD
+        # radix sort is stable, so key + index payload is the permutation
+        host = RadixSortBuilder(fields[0], [idx], device=device)._try_host_sort(n)
+        if host is not None:
+            return host[1][0]
     out = RadixSortBuilder(tuple(fields + [idx]), device=device).sort()
     return out[-1]

@@ -8,10 +8,21 @@ runs (CPU), see ``rdst_tpu_torch/_build.py``.
 
 Sizes taken over from the JAX package unchanged are parameters of the port,
 not H100 measurements; PERF.md lists which ones have been re-derived.
+
+The knobs the two packages share read the JAX package's environment
+variables at import (``RDST_TPU_HOST_SORT_MAX``, ``RDST_TPU_MAX_BUCKETED``,
+``RDST_TPU_LOW_MEM_THRESHOLD``, ``RDST_TPU_HIER_STAGE1_HEADROOM``,
+``RDST_TPU_REFINE_LEVELS``, ``RDST_TPU_REPLICATE_CAP_MAX``,
+``RDST_TPU_PRESORTED_MIN``, ``RDST_TPU_WORK_PROFILES``); the defaults are
+the port's own.  Two variables have no counterpart:
+``RDST_TPU_FORCE_INTERPRET``, because a CUDA kernel has no interpret mode
+(a CPU tensor runs the plain version), and ``RDST_TPU_REMOTE_DMA``, because
+the exchange here is always kernel B6 on CUDA shards.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 
 #: Below this many elements ``comparative_sort`` uses ``lex_sort`` instead of
 #: the fused bitonic executor (``rdst_tpu/ops/pallas_sort.py`` MIN_ELEMS).
@@ -49,7 +60,7 @@ bitonic_smem_bytes = 227 * 1024
 #: Presorted-input advantage (``rdst_tpu/config.py`` presorted_merge_min):
 #: a sorted prefix covering half the input is kept and only the suffix is
 #: sorted, then merged.  A parameter, as above.
-presorted_merge_min = 1 << 17
+presorted_merge_min = int(os.environ.get("RDST_TPU_PRESORTED_MIN", str(1 << 17)))
 
 #: Working-set size (bytes, all operand planes) above which the Regions plan
 #: engages its chunked low-memory path (``sorts/regions.py``
@@ -57,14 +68,37 @@ presorted_merge_min = 1 << 17
 #: i.e. when planes take 1/8 of device memory, since the dense sort needs
 #: several times its planes in workspace.  The same fraction of an H100's
 #: 80 GB is 10 GiB.
-low_mem_threshold_bytes = 10 << 30
+low_mem_threshold_bytes = int(
+    os.environ.get("RDST_TPU_LOW_MEM_THRESHOLD", str(10 << 30))
+)
+
+#: The builder's host path (``builder.RadixSortBuilder._try_host_sort``): a
+#: 1-D numpy input of at most this many elements, under a built-in tuner,
+#: sorts on the C++ host runtime (``native/rdst_host.cpp``) instead of the
+#: card.  0 disables.  Measured by ``chip_smoke.py``'s crossover phase
+#: (numpy in and out, host clock, median of 5) on an NVIDIA H100 80GB HBM3 at
+#: a 700.00 W power limit, with 8 cores of an Intel CPU (family 6, model 207;
+#: its /proc/cpuinfo gives no model name): the host path was slower than the
+#: device path at every power of two from 2 to 2^22 for
+#: ``radix_sort_unstable`` (u32, u64, f64) and ``sort_key_value`` (u32 + u32,
+#: stable) in each of three runs, e.g. 0.85 against 0.22 ms at 2 u32 keys
+#: and 13.93 against 1.45 at 2^20; it beat only stable ``argsort`` of u64,
+#: at some sizes up to 2^15, whose device path costs 2-7 ms there.  A
+#: thread there took 0.26-0.90 ms to start and join, and the C++ sort
+#: starts its threads twice in each byte pass.  So there is no
+#: size at which the host path is no slower for every call, and the path is
+#: off.  The JAX package's 2^18 was sized against a TPU's dispatch round
+#: trip.
+host_sort_max = int(os.environ.get("RDST_TPU_HOST_SORT_MAX", "0"))
 
 #: Inputs longer than this skip the bucketed MSB plan (``sorts/msb.py``) for
 #: the comparative one.  In the JAX package it bounds XLA compile time of the
 #: padded-bucket graph; PyTorch compiles nothing, so here it only keeps the
 #: port's plan choices, and its ``(msb) FALLBACK`` trace, equal to the JAX
 #: package's.  Either plan gives the same sorted output.
-max_bucketed_elements = 20_000_000
+max_bucketed_elements = int(
+    os.environ.get("RDST_TPU_MAX_BUCKETED", str(20_000_000))
+)
 
 # The distributed shuffle (``parallel/shuffle.py``).  These three are
 # algorithm parameters of ``rdst_tpu/config.py``, carried over unchanged.
@@ -75,19 +109,23 @@ max_bucketed_elements = 20_000_000
 #: Stage-1 buffer of the 2-axis (host, chip) exchange, as a multiple of the
 #: final capacity: skewed routing can funnel more than one chip's final
 #: share through one chip column in stage 1.
-hier_stage1_headroom = 1.5
+hier_stage1_headroom = float(
+    os.environ.get("RDST_TPU_HIER_STAGE1_HEADROOM", "1.5")
+)
 
 #: Hot-bucket refinement levels of the shuffle's partition (a fresh 16-bit
 #: window over the hottest multi-key bucket per level); 0 disables.
-shuffle_refine_levels = 2
+shuffle_refine_levels = int(os.environ.get("RDST_TPU_REFINE_LEVELS", "2"))
 
 #: ``partition_exchange`` of a dataset of at most this many rows gives every
 #: shard full-table capacity, so a small table co-partitions against any skew.
-replicate_capacity_max = 1 << 16
+replicate_capacity_max = int(
+    os.environ.get("RDST_TPU_REPLICATE_CAP_MAX", str(1 << 16))
+)
 
 # work_profiles-equivalent: trace per-level algorithm picks
 # (reference: Cargo.toml:18, src/sorter.rs:78-79).
-_work_profiles = [False]
+_work_profiles = [os.environ.get("RDST_TPU_WORK_PROFILES", "0") not in ("0", "")]
 
 
 def work_profiles_enabled() -> bool:

@@ -96,6 +96,14 @@ def device_of(arrays, device) -> torch.device:
     return as_device(device)
 
 
+def num_levels(x_or_dtype, *, width: int | None = None) -> int:
+    """Number of byte levels of a key dtype (``RadixKey::LEVELS``): a numpy
+    or torch dtype, or an array or tensor of one; ``width`` overrides it."""
+    dt = getattr(x_or_dtype, "dtype", x_or_dtype)
+    n = dt.itemsize if isinstance(dt, torch.dtype) else np.dtype(dt).itemsize
+    return n if width is None else width
+
+
 def supported_dtypes() -> tuple[torch.dtype, ...]:
     return (
         torch.uint8, torch.uint16, torch.uint32, torch.uint64,

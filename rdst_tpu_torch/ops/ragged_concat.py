@@ -1,6 +1,7 @@
 """Ragged row concatenation: write valid row prefixes densely.
 
-Port of ``rdst_tpu/ops/ragged_concat.py`` ``ragged_concat_multi``, the
+Port of ``rdst_tpu/ops/ragged_concat.py`` (``ragged_concat_multi`` and its
+one-plane form ``ragged_concat_rows``), the
 writeback of the bucketed plan (``sorts/msb.py``): planes ``(B, cap)`` whose
 row b holds ``lengths[b]`` valid elements go to flat ``(total,)`` planes, row
 b's prefix at the exclusive prefix sum of the lengths before it.
@@ -19,7 +20,14 @@ import torch
 from rdst_tpu_torch import _planes as P
 from rdst_tpu_torch.ops.prefix import exclusive_prefix_sum
 
-__all__ = ["ragged_concat_multi"]
+__all__ = ["ragged_concat_rows", "ragged_concat_multi"]
+
+
+def ragged_concat_rows(src: torch.Tensor, lengths, total: int,
+                       fill: int = 0xFFFFFFFF) -> torch.Tensor:
+    """Concatenate the valid row prefixes of ``src`` (B, cap) into
+    ``(total,)``."""
+    return ragged_concat_multi([src], lengths, total, fill)[0]
 
 
 def ragged_concat_multi(planes, lengths, total: int, fill: int = 0xFFFFFFFF):

@@ -10,7 +10,10 @@ over a mesh of shards.
     joined, n = distributed_join(fact, dim, "k", mesh=mesh)
 
 ``make_mesh(8, device="cpu")`` runs the same code with the exchange's plain
-version.  ``init_distributed`` (a multi-process backend) is not ported yet.
+version.  ``init_distributed`` is not ported: it starts a multi-process
+backend (one shard per process), which does not exist yet.  NCCL does not
+allow two ranks of one communicator on one device, so such a backend cannot
+run more than one rank on a machine with one card.
 """
 from rdst_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d
 from rdst_tpu_torch.parallel.shuffle import (

@@ -27,7 +27,9 @@ Not ported, by design:
     has the exact ragged layout; ``use_ragged`` is accepted and has no
     effect;
   * ``init_distributed``: it belongs to a multi-process backend (one shard
-    per process), which does not exist yet.
+    per process), which does not exist yet; NCCL does not allow two ranks
+    of one communicator on one device, so on one card such a backend runs
+    one rank.
 The D == 1 exchange stays an identity, as the JAX package's semantics; the
 libtpu fault that motivated it there does not apply.
 
