@@ -75,6 +75,21 @@ Phases, each printing its own lines:
          ``Sorter.run`` of 2^25 u64 keys on the card inside
          ``utils.trace.profile_to``, whose trace must hold the B1, B2 and
          B3 kernels as often as their launches were counted;
+       - the shuffle over processes (``init_distributed``), in fresh child
+         processes on the one card (``chip_smoke.py --dist MODE RANK
+         INIT``): one NCCL rank on ``make_mesh(8)`` and ``make_mesh_2d(1,
+         8)`` at the stable 2^28 call; two gloo ranks, 4 shards each, at
+         2^27 rows on ``make_mesh(8)``, ``make_mesh_2d(2, 4)`` and the
+         overlapped exchange, whose exchanges cross processes and launch B6
+         with 8 senders and 4 receivers (its launches, the transport's
+         bytes, the size matrix's host reads and a split of the call into
+         size read, transport, B6 and sorts); each bit-equal to torch.sort
+         and to the one-process ``make_mesh(8)``; each rank then holds B6
+         at every (senders, receivers, planes, capacity) shape its counted
+         calls launched, and B2-B5 at every shape they launched, against
+         their plain versions; and two NCCL ranks on the one card, tried
+         once, printing what NCCL answers inside its first collective (a
+         finding, not a check; any failure before it fails the phase);
        - every ``examples/torch_*.py`` with ``--device cuda``, all started
          together, each of which must exit 0;
   4. one JSON line of the kernels, then the result line.  Its times are
@@ -100,6 +115,7 @@ not importable, or when any check fails.  Needs one card; uses no JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -155,6 +171,26 @@ def nbytes(ts) -> int:
     if not isinstance(ts, (list, tuple)):
         ts = [ts]
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def max_err(a, b) -> int:
+    """The largest absolute difference of two tensors or lists of them,
+    which must match in dtype and shape."""
+    import torch
+
+    from rdst_tpu_torch import _planes as P
+
+    if isinstance(a, torch.Tensor):
+        a, b = [a], [b]
+    err = 0
+    for x, y in zip(a, b):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"dtype/shape {x.dtype}{tuple(x.shape)} "
+                                 f"vs {y.dtype}{tuple(y.shape)}")
+        d = (P.widen(x) if x.dtype != torch.int64 else x) - (
+            P.widen(y) if y.dtype != torch.int64 else y)
+        err = max(err, int(d.abs().max().item()) if d.numel() else 0)
+    return err
 
 
 def ce_ops(name, dtypes, n, args) -> int:
@@ -1218,6 +1254,348 @@ def trace_child() -> int:
     return 0
 
 
+DIST_MODES = {  # mode: (world size, backend, rows in all)
+    "nccl1": (1, "nccl", 1 << 28),
+    "gloo2": (2, "gloo", 1 << 27),
+    "nccl2": (2, "nccl", 1 << 24),  # tried once: NCCL may refuse one card twice
+}
+NCCL_PROBE = "probing: an all_reduce over two NCCL ranks on one card"
+
+
+def multiprocess_phase(launches):
+    """The shuffle over processes, in fresh child processes on the one card
+    (``chip_smoke.py --dist MODE RANK``, :func:`dist_child`): (i) one NCCL
+    rank, (ii) two gloo ranks with 4 shards each, whose exchanges cross
+    processes through B6's rectangular launch, (iii) two NCCL ranks on the
+    one card, tried once.  What NCCL answers in (iii), inside its first
+    collective (an error, a hang or a crash there), is printed as a finding;
+    any other failure fails the phase.  Each child's last line is its
+    launch counts."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    rdv = os.path.join(root, "build", "chip_smoke_dist")
+    os.makedirs(rdv, exist_ok=True)
+    for mode, (world, _, _) in DIST_MODES.items():
+        init = os.path.join(rdv, mode)
+        if os.path.exists(init):
+            os.remove(init)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist", mode, str(r),
+             "file://" + init], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(world)]
+        outs = []
+        try:
+            for r, p in enumerate(procs):
+                try:
+                    out, err = p.communicate(timeout=150 if mode == "nccl2" else 600)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    out, err = p.communicate()
+                    err += f"\nrank {r}: no exit within the time limit, killed"
+                outs.append((p.returncode, out, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (rc, out, err) in enumerate(outs):
+            lines = out.strip().splitlines()
+            for line in lines[:-1]:
+                print(f"[{mode} rank {r}] {line}")
+            verdict = [x for x in lines if x.startswith("finding: NCCL")]
+            if mode == "nccl2" and not verdict and NCCL_PROBE in lines:
+                # no answer from inside the collective: the crash or hang
+                # there is NCCL's answer
+                tail = " | ".join(err.strip().splitlines()[-6:])
+                print(f"[{mode} rank {r}] finding: NCCL gave no answer inside its first "
+                      f"collective (exit {rc}); stderr ends: {tail}")
+                continue
+            if rc != 0 or not lines:
+                raise AssertionError(f"the {mode} phase failed on rank {r} ({rc}):\n"
+                                     f"{err[-4000:]}")
+            for name, c in json.loads(lines[-1])["launches"].items():
+                launches[name] += c
+        print(f"multi-process {mode}: {world} rank(s) done in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
+def dist_child(mode, rank, init) -> int:
+    """One rank of :func:`multiprocess_phase`.  Inputs are made on the card
+    from a seed, the same on every rank, and the one-process
+    ``make_mesh(8)`` result is computed before the process group starts;
+    each rank then passes its own rows.  Every variant's output is held
+    bit-equal to that result (planes and counts on the flat mesh, the
+    valid rows elsewhere) and to torch.sort.  The counted call of each
+    variant records the shapes of its B2-B6 launches; afterwards each
+    shape is held against its plain version on this rank."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --dist: CUDA is not available", file=sys.stderr)
+        return 2
+    from rdst_tpu_torch import _build
+    from rdst_tpu_torch import _planes as P
+    from rdst_tpu_torch import parallel as par
+    from rdst_tpu_torch.ops import fused_merge as fm
+    from rdst_tpu_torch.ops import fused_sort as fs
+    from rdst_tpu_torch.parallel import mesh as M
+    from rdst_tpu_torch.parallel import remote_dma as rd
+    from rdst_tpu_torch.parallel import shuffle as sh
+
+    world, backend, n = DIST_MODES[mode]
+    dev = torch.device("cuda", 0)
+    _build.library()
+    sign = -(1 << 63)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    hi, lo = [P.narrow(torch.randint(0, 1 << 32, (n,), generator=gen, device=dev,
+                                     dtype=torch.int64), torch.uint32) for _ in range(2)]
+    pay = P.arange(n, torch.uint32, dev)
+    ref_key, ref_idx = torch.sort(((P.widen(hi) << 32) | P.widen(lo)) ^ sign, stable=True)
+    ref_key ^= sign
+    want = [P.narrow(ref_key >> 32, torch.uint32), P.narrow(ref_key & 0xFFFFFFFF, torch.uint32),
+            P.narrow(ref_idx, torch.uint32)]
+    del ref_key, ref_idx
+    one = par.distributed_sort([hi, lo], [pay], mesh=par.make_mesh(8), stable=True)
+    one_planes, one_counts = one[0] + one[1], one[2]
+    del one
+    cap = one_planes[0].shape[0] // 8
+
+    def same(a, b):
+        return all(torch.equal(P.sview(x), P.sview(y)) for x, y in zip(a, b))
+
+    def dense(planes, counts, first, L, cap):
+        c = counts.tolist()
+        return [P.cat([p[i * cap:i * cap + c[first + i]] for i in range(L)]) for p in planes]
+
+    if not same(dense(one_planes, one_counts, 0, 8, cap), want):  # all 8 shards
+        raise AssertionError("the one-process make_mesh(8) result differs from torch.sort")
+
+    par.init_distributed(backend=backend, device="cuda", init_method=init, rank=rank,
+                         world_size=world, timeout=datetime.timedelta(seconds=60))
+    print(f"rank {rank} of {world}, {backend}, card {torch.cuda.get_device_name(0)}")
+    if mode == "nccl2":
+        print(NCCL_PROBE, flush=True)
+        try:
+            x = torch.full((4,), rank + 1, dtype=torch.int64, device=dev)
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            print(f"finding: NCCL ran an all_reduce over two ranks on one card: "
+                  f"{x.tolist()}")
+        except Exception as e:  # the finding is what NCCL says
+            print(f"finding: NCCL refused two ranks on one card: "
+                  f"{type(e).__name__}: {' '.join(str(e).split())[:600]}")
+            print(json.dumps({"launches": {}}), flush=True)
+            os._exit(0)  # no teardown of a communicator NCCL refused
+    L = 8 // world
+    first = rank * L
+    rows = slice(first * (n // 8), (first + L) * (n // 8))
+    if world == 1:
+        variants = [("make_mesh(8)", par.make_mesh(8), {}),
+                    ("make_mesh_2d(1, 8)", par.make_mesh_2d(1, 8), {})]
+    else:
+        variants = [("make_mesh(8)", par.make_mesh(8), {}),
+                    ("make_mesh_2d(2, 4)", par.make_mesh_2d(2, 4), {}),
+                    ("make_mesh(8), overlap_exchange", par.make_mesh(8),
+                     dict(overlap_exchange=True))]
+    launches = {name: 0 for name in KERNEL_INFO}
+    seen = {}  # B2-B5: the counted calls' launches by shape
+    b6_cases = {}  # B6: (senders, receivers, planes, capacity) -> a copy of its inputs
+    shapes = set()  # B6's shapes in the current variant's counted call
+    real_b6 = rd.remote_dma_exchange_cuda
+
+    def b6(planes, offs, sizes, capacity):
+        key = (len(planes), int(sizes[0].shape[0]), len(planes[0]), capacity)
+        shapes.add(key)
+        if key not in b6_cases:
+            b6_cases[key] = ([[_aligned_clone(torch, q) for q in ps] for ps in planes],
+                             [o.clone() for o in offs], [z.clone() for z in sizes])
+        return real_b6(planes, offs, sizes, capacity)
+
+    for label, mesh, kw in variants:
+        if len(mesh.axis_names) == 2:
+            kw = dict(kw, axis=mesh.axis_names)
+
+        def call():
+            return par.distributed_sort([hi[rows], lo[rows]], [pay[rows]], mesh=mesh,
+                                        stable=True, **kw)
+
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        for k in M.TRANSPORT:
+            M.TRANSPORT[k] = 0
+        shapes.clear()
+        if world > 1:
+            dist.barrier()
+        torch.cuda.synchronize()
+        rd.remote_dma_exchange_cuda = b6
+        try:
+            with record_shapes(fs, fm, seen):
+                t0 = time.perf_counter()
+                w, p, c = call()
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+        finally:
+            rd.remote_dma_exchange_cuda = real_b6
+        counted = {name: _build.KERNELS[name].launches for name in KERNEL_INFO}
+        for name, v in counted.items():
+            launches[name] += v
+        moved = dict(M.TRANSPORT)
+        got = dense(w + p, c, first, L, int(w[0].shape[0]) // L)
+        start = sum(c.tolist()[:first])
+        if not same(got, [x[start:start + got[0].shape[0]] for x in want]):
+            raise AssertionError(f"{label} differs from torch.sort")
+        if "axis" not in kw:  # the flat mesh: the one-process result's own shards
+            mine = [x[first * cap:(first + L) * cap] for x in one_planes]
+            if not (torch.equal(c, one_counts)
+                    and same(got, dense(mine, one_counts, first, L, cap))):
+                raise AssertionError(f"{label}: counts or rows differ from the "
+                                     "one-process mesh")
+            if not kw and not same(w + p, mine):
+                raise AssertionError(f"{label}: planes differ from the one-process mesh")
+        if counted["remote_exchange"] <= 0:
+            raise AssertionError(f"{label} exchanged without B6")
+        if world > 1 and not any(s != r for s, r, _, _ in shapes):
+            raise AssertionError(f"{label}: B6 never launched in its rectangular form")
+        del w, p, c, got
+        # warm time, then the split with a synchronize around each piece
+        if world > 1:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        split = _timed_split(torch, sh, M, rd, call) if world > 1 else {}
+        print(f"path {label} (rank {rank}): first {first_s:.4f} s, warm {warm:.4f} s, "
+              f"{n / warm:,.0f} rows/s over {world} rank(s); bit-exact vs torch.sort "
+              f"and the one-process make_mesh(8); launches {counted}; B6 shapes "
+              f"(senders, receivers, planes, capacity) {sorted(shapes)}; "
+              f"transport {moved}" + (f"; split (synchronized run, s): {split}"
+                                      if split else ""))
+    del hi, lo, pay, want, one_planes, one_counts
+    torch.cuda.empty_cache()
+
+    # every B6 shape of the counted calls, then every B2-B5 shape
+    for key in sorted(b6_cases):
+        _b6_case(torch, rd, b6_cases.pop(key), key, rank)
+    torch.cuda.empty_cache()
+
+    def planes_of(n, dtypes):
+        return [P.narrow(torch.randint(0, P.all_ones(dt) + 1, (n,), generator=gen,
+                                       device=dev, dtype=torch.int64), dt)
+                for dt in dtypes]
+
+    def check(name, label, kernel_fn, plain_fn, **_):
+        err = max_err(kernel_fn(), plain_fn())
+        print(f"{name} [{label}; rank {rank}]: max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"{name} [{label}] disagrees with its plain "
+                                 f"version (max_abs_err {err})")
+
+    check_recorded(fs, fm, seen, planes_of, check, main=False)
+    print(json.dumps({"launches": launches}))
+    dist.destroy_process_group()
+    return 0
+
+
+def _aligned_clone(torch, t):
+    """A copy of a u32 plane at the same word offset mod 4 (B6's copies
+    take another path at each residue)."""
+    r = (t.data_ptr() // 4) % 4
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[(r - buf.data_ptr() // 4) % 4:][:t.numel()]
+    out.copy_(t)
+    return out
+
+
+def _timed_split(torch, sh, M, rd, call):
+    """One more call with a synchronize around each piece: the size read
+    (the sizes' all_gather and the host read of the size matrix), the
+    transport (``Mesh.all_to_all``, gloo's copies through the CPU
+    included), B6 inside the cross-process exchanges and B6 in the
+    exchanges within a process (the 2-axis mesh's stage 2), the rest of
+    each cross-process exchange (packing, the offset table), the sorts,
+    split at the first exchange (the local sorts before it, the routing
+    and finish sorts after), and the rest of the call (under gloo, every
+    other collective's round trip through the CPU among it)."""
+    acc = collections.Counter()
+    state = {"exchanged": False, "across": False}
+    saved = (M.Mesh.all_to_all, rd.remote_dma_exchange_cuda, sh._exchange_across,
+             sh._local_sort, M.Mesh.read_gathered)
+
+    def timed(key, fn):
+        def wrap(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[key() if callable(key) else key] += time.perf_counter() - t0
+            return out
+        return wrap
+
+    def across(*a, **k):
+        state["exchanged"] = state["across"] = True
+        try:
+            return saved[2](*a, **k)
+        finally:
+            state["across"] = False
+
+    M.Mesh.all_to_all = timed("transport", saved[0])
+    rd.remote_dma_exchange_cuda = timed(
+        lambda: "B6" if state["across"] else "B6 within a process", saved[1])
+    sh._exchange_across = timed("exchange", across)
+    sh._local_sort = timed(lambda: "sorts after" if state["exchanged"] else "sorts before",
+                           saved[3])
+    M.Mesh.read_gathered = timed("size read", saved[4])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        M.Mesh.all_to_all, rd.remote_dma_exchange_cuda, sh._exchange_across, \
+            sh._local_sort, M.Mesh.read_gathered = saved
+    acc["exchange rest"] = (acc["exchange"] - acc["transport"] - acc["B6"]
+                            - acc["size read"])
+    del acc["exchange"]
+    acc["rest of the call"] = total - sum(acc.values())
+    acc["call"] = total
+    return {k: round(v, 4) for k, v in sorted(acc.items())}
+
+
+def _b6_case(torch, rd, rec, key, rank):
+    """B6 at one shape a counted call gave it, on a copy of that launch's
+    inputs, against its plain version: bit-exact, its time alone on
+    buffers made beforehand (CUDA events) beside its bound and the plain
+    version's."""
+    src, offs, sizes = rec
+    S, R, k, cap = key
+    so, sz = torch.stack(offs), torch.stack(sizes)
+    got = rd.remote_dma_exchange_cuda(src, offs, sizes, cap)
+    want = rd.remote_dma_exchange_plain(src, offs, sizes, cap)
+    err = max_err(got[0] + [got[1], got[2]], want[0] + [want[1], want[2]])
+    if err != 0:
+        raise AssertionError(f"B6 {S} x {R} differs from its plain version "
+                             f"(max_abs_err {err})")
+    recv = [torch.empty(R * cap, dtype=torch.uint32, device=src[0][0].device)
+            for _ in range(k)]
+    arrived = torch.zeros((k, R), dtype=torch.int64, device=src[0][0].device)
+    ms = cuda_ms(torch, lambda: rd.launch_all(src, so, sz, recv, arrived, cap))
+    plain_ms = cuda_ms(torch, lambda: rd.remote_dma_exchange_plain(src, offs, sizes, cap))
+    landed = int(rd.exchange_layout(sz, cap).landed.sum())
+    moved = 4 * k * (landed + R * cap)
+    bound = moved / HBM * 1e3
+    print(f"remote_exchange [{S} senders x {R} receivers, {k} planes, capacity {cap}, "
+          f"rank {rank}]: max_abs_err={err} kernel {ms:.4f} ms (the launch alone), "
+          f"plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({moved} B; bytes), kernel at "
+          f"{bound / ms:.1%} of it")
+
+
 def run_examples():
     """Every ``examples/torch_*.py`` with ``--device cuda``, all started
     together, each in its own process; each must exit 0."""
@@ -1254,6 +1632,8 @@ def run_examples():
 def main() -> int:
     if sys.argv[1:] == ["--trace"]:
         return trace_child()
+    if sys.argv[1:2] == ["--dist"]:
+        return dist_child(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     import torch
 
     if not torch.cuda.is_available():
@@ -1304,19 +1684,6 @@ def main() -> int:
                               dtype=torch.int64)
             out.append(P.narrow(v, dt))
         return out
-
-    def max_err(a, b) -> int:
-        if isinstance(a, torch.Tensor):
-            a, b = [a], [b]
-        err = 0
-        for x, y in zip(a, b):
-            if x.dtype != y.dtype or x.shape != y.shape:
-                raise AssertionError(f"dtype/shape {x.dtype}{tuple(x.shape)} "
-                                     f"vs {y.dtype}{tuple(y.shape)}")
-            d = (P.widen(x) if x.dtype != torch.int64 else x) - (
-                P.widen(y) if y.dtype != torch.int64 else y)
-            err = max(err, int(d.abs().max().item()) if d.numel() else 0)
-        return err
 
     # -- 2. kernels against their plain versions ------------------------------
     results = {name: {"max_abs_err": 0} for name in KERNEL_INFO}
@@ -1689,6 +2056,7 @@ def main() -> int:
     host_runtime(rng)
     crossover(rt, config, _build, rng, launches)
     trace_phase(launches)
+    multiprocess_phase(launches)
     run_examples()
     print(f"launches on the paths: {launches}")
     if "jax" in sys.modules:

@@ -12,7 +12,11 @@
 // offset sum_{s' < s} size[s', d] of d's buffer.
 //
 // One launch does the whole exchange, every sender and every plane, and
-// writes every receive word exactly once.  The segments of receiver d tile
+// writes every receive word exactly once.  Senders and receivers may differ
+// in number (S x R): on a mesh that spans processes the receivers are this
+// process's shards and the senders every shard of the group, a remote
+// sender's plane being its block of the transport buffer that
+// torch.distributed filled.  The segments of receiver d tile
 // [0, min(demand_d, capacity)) of its buffer in sender order (the offsets are
 // a cumsum), and the pad word fills the rest, so the kernel walks the
 // receive buffers, not the senders: block (c, d, j) owns receive words
@@ -37,15 +41,17 @@
 // split with no source.
 //
 // Bound: bytes.  Each landed word is read once and each receive word written
-// once: 4 * (landed + planes * D * capacity) bytes over the H100's 3.35 TB/s.
+// once: 4 * (landed + planes * R * capacity) bytes over the H100's 3.35 TB/s.
 // The first design (one launch per sender and plane, one u32 a thread, the
 // receive buffers filled with the pad word beforehand) wrote every landed
 // word twice and ran its launches at 43% of HBM bandwidth on the shuffle's
 // unaligned segments.
 //
 // Ordering, the counterpart of the barrier: receivers read only after the
-// launch, which stream order gives with all shards on one card.  Shards on
-// several cards need events around it: not done here.
+// launch, which stream order gives with all shards on one card.  A remote
+// sender's block was written by a collective that the current stream has
+// waited for before this launch.  Shards on several cards of one process
+// need events around it: not done here.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,14 +63,15 @@ constexpr int kUnroll = 4;    // 16-byte stores in flight per thread
 constexpr uint32_t kPad = 0xFFFFFFFFu;
 
 struct Exchange {
-  // [j * n + s]: sender s's plane j; [(n_planes + j) * n + d]: receiver d's
-  // buffer of plane j (capacity words)
+  // [j * n_send + s]: sender s's plane j; [n_planes * n_send + j * n_recv +
+  // d]: receiver d's buffer of plane j (capacity words)
   const long long* ptrs;
-  const long long* src_off;  // (n, n) [s, d]: segment start in the sender
-  const long long* sizes;    // (n, n) [s, d]: rows s sends d
-  unsigned long long* arrived;  // (n_planes, n)
+  const long long* src_off;  // (n_send, n_recv) [s, d]: segment start in the sender
+  const long long* sizes;    // (n_send, n_recv) [s, d]: rows s sends d
+  unsigned long long* arrived;  // (n_planes, n_recv)
   long long capacity;
-  int n;
+  int n_send;
+  int n_recv;
   int n_planes;
 };
 
@@ -152,17 +159,18 @@ __global__ void __launch_bounds__(kThreads)
 exchange_kernel(const __grid_constant__ Exchange X) {
   const int d = blockIdx.y;
   const int j = blockIdx.z;
-  const int n = X.n;
+  const int ns = X.n_send;
+  const int nr = X.n_recv;
   const long long cap = X.capacity;
   const long long p0 = static_cast<long long>(blockIdx.x) * kChunk;
   const long long p1 = p0 + kChunk < cap ? p0 + kChunk : cap;
   uint32_t* out = reinterpret_cast<uint32_t*>(
-      X.ptrs[static_cast<long long>(X.n_planes + j) * n + d]);
+      X.ptrs[static_cast<long long>(X.n_planes) * ns + static_cast<long long>(j) * nr + d]);
   long long landed = 0;  // words of [p0, p1) that landed; uniform
   long long fill = 0;    // min(demand_d, capacity): where the pad begins
   long long lo = 0;      // where sender s's segment lands: sum of sizes[< s, d]
-  for (int s = 0; s < n; ++s) {
-    const long long i = static_cast<long long>(s) * n + d;
+  for (int s = 0; s < ns; ++s) {
+    const long long i = static_cast<long long>(s) * nr + d;
     const long long size = X.sizes[i];
     long long fit = cap - lo;  // the part of the segment below the capacity
     if (fit > size) fit = size;
@@ -172,7 +180,7 @@ exchange_kernel(const __grid_constant__ Exchange X) {
     const long long b = p1 < lo + fit ? p1 : lo + fit;
     if (a < b) {
       const uint32_t* in = reinterpret_cast<const uint32_t*>(
-                               X.ptrs[static_cast<long long>(j) * n + s]) +
+                               X.ptrs[static_cast<long long>(j) * ns + s]) +
                            X.src_off[i] + (a - lo);
       copy_words(out + a, in, b - a);
       landed += b - a;
@@ -182,22 +190,24 @@ exchange_kernel(const __grid_constant__ Exchange X) {
   const long long a = p0 > fill ? p0 : fill;
   if (a < p1) pad_words(out + a, p1 - a);
   if (threadIdx.x == 0 && landed > 0) {
-    atomicAdd(&X.arrived[static_cast<long long>(j) * n + d],
+    atomicAdd(&X.arrived[static_cast<long long>(j) * nr + d],
               static_cast<unsigned long long>(landed));
   }
 }
 
 }  // namespace
 
-// ptrs: device table of 2 * n_planes * n int64 addresses (sender planes, then
-// receiver buffers, as in Exchange).  src_off, sizes: device (n, n) int64
-// [sender, receiver].  arrived: device (n_planes, n) int64, added to.  Every
-// receive word is written: no fill beforehand.
+// ptrs: device table of n_planes * (n_send + n_recv) int64 addresses (sender
+// planes, then receiver buffers, as in Exchange).  src_off, sizes: device
+// (n_send, n_recv) int64 [sender, receiver].  arrived: device (n_planes,
+// n_recv) int64, added to.  Every receive word is written: no fill
+// beforehand.
 extern "C" int rdst_remote_exchange(const void* ptrs, const void* src_off,
-                                    const void* sizes, int n, int n_planes,
-                                    long long capacity, void* arrived,
-                                    void* stream) {
-  if (n < 1 || n > 65535 || n_planes < 1 || n_planes > 65535 || capacity < 0) {
+                                    const void* sizes, int n_send, int n_recv,
+                                    int n_planes, long long capacity,
+                                    void* arrived, void* stream) {
+  if (n_send < 1 || n_recv < 1 || n_recv > 65535 || n_planes < 1 ||
+      n_planes > 65535 || capacity < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long chunks = (capacity + kChunk - 1) / kChunk;
@@ -209,9 +219,10 @@ extern "C" int rdst_remote_exchange(const void* ptrs, const void* src_off,
   X.sizes = static_cast<const long long*>(sizes);
   X.arrived = static_cast<unsigned long long*>(arrived);
   X.capacity = capacity;
-  X.n = n;
+  X.n_send = n_send;
+  X.n_recv = n_recv;
   X.n_planes = n_planes;
-  const dim3 grid(static_cast<unsigned int>(chunks), static_cast<unsigned int>(n),
+  const dim3 grid(static_cast<unsigned int>(chunks), static_cast<unsigned int>(n_recv),
                   static_cast<unsigned int>(n_planes));
   exchange_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(X);
   return static_cast<int>(cudaGetLastError());

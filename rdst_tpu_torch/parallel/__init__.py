@@ -10,12 +10,22 @@ over a mesh of shards.
     joined, n = distributed_join(fact, dim, "k", mesh=mesh)
 
 ``make_mesh(8, device="cpu")`` runs the same code with the exchange's plain
-version.  ``init_distributed`` is not ported: it starts a multi-process
-backend (one shard per process), which does not exist yet.  NCCL does not
-allow two ranks of one communicator on one device, so such a backend cannot
-run more than one rank on a machine with one card.
+version.  One process per card (or per CPU rank), under ``torchrun
+--nproc_per_node=N``:
+
+    init_distributed()                        # NCCL; gloo for device="cpu"
+    mesh = make_mesh(8)                       # 8 // N shards in each process
+    words, payloads, counts = distributed_sort([hi, lo], [pay], mesh=mesh)
+    hi_s, lo_s, pay_s = gather_valid(words + payloads, counts, mesh=mesh)
+
+Each process passes its own rows (its shards' share) and gets its shards'
+planes with the global counts; ``gather_valid(..., mesh=mesh)`` returns the
+whole order on every rank.  ``init_distributed(device="cpu",
+init_method="file:///tmp/rdv", rank=r, world_size=n)`` starts gloo without
+torchrun.  The table operators (``dtable``) raise ``NotImplementedError``
+on a mesh that spans processes.
 """
-from rdst_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d
+from rdst_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh, make_mesh_2d
 from rdst_tpu_torch.parallel.shuffle import (
     distributed_sort,
     distributed_sort_auto,
@@ -35,6 +45,7 @@ __all__ = [
     "distributed_sort_auto",
     "partition_exchange",
     "gather_valid",
+    "init_distributed",
     "make_mesh",
     "make_mesh_2d",
     "distributed_sort_table",

@@ -16,7 +16,8 @@ the operators compose:
     partition, then a local sort-merge join on every shard.
 
 The JAX package runs each body inside ``shard_map``.  Here the shards of a
-:class:`~rdst_tpu_torch.parallel.mesh.Mesh` live in this process and each
+:class:`~rdst_tpu_torch.parallel.mesh.Mesh` live in this process (a mesh
+that spans processes raises ``NotImplementedError``: not ported yet) and each
 body runs in lockstep over lists of per-shard tensors, with the mesh's
 collectives in place of ``all_gather`` / ``psum`` and the shard index in
 place of ``axis_index``, as ``parallel/shuffle.py`` does.  Every operator
@@ -74,6 +75,15 @@ def _hash_plane(words) -> torch.Tensor:
         h = _mul32(h, _GOLDEN)
         h = h ^ (h >> 15)
     return P.narrow(h, torch.uint32)
+
+
+def _one_process(mesh: Mesh, op: str) -> None:
+    """The operators hold whole tables in one process; over processes they
+    would run on part of one, so they refuse."""
+    if mesh.processes:
+        raise NotImplementedError(
+            f"{op} over a mesh that spans processes is not ported yet "
+            "(ROADMAP.md, queue A: the dtable operators over processes)")
 
 
 def _on_mesh(table: Table, mesh: Mesh) -> Table:
@@ -139,6 +149,7 @@ def distributed_sort_table(
 ):
     """Global ORDER BY over the mesh.  Returns (Table of D * capacity rows
     in device-major order, (D,) per-shard valid counts)."""
+    _one_process(mesh, "distributed_sort_table")
     table = _on_mesh(table, mesh)
     by, nk, _, enc, payload_words = _encode_table(table, by)
     words, payloads, counts = distributed_sort(
@@ -155,6 +166,7 @@ def distributed_filter(table: Table, mask, *, mesh: Mesh, axis: str = "shard"):
     """A local filter on every shard (no exchange): each shard's kept rows
     packed left in stable order, its other rows after them, with (D,) int32
     per-shard counts."""
+    _one_process(mesh, "distributed_filter")
     _check_axis(mesh, axis)
     table = _on_mesh(table, mesh)
     D = mesh.size
@@ -377,6 +389,7 @@ def distributed_group_aggregate(
     ``partition="hash"`` shuffles by a leading 32-bit key hash instead of
     the key range: distinct group keys spread uniformly whatever their range
     clustering, and the group rows arrive in hash order, not key order."""
+    _one_process(mesh, "distributed_group_aggregate")
     by_list = [by] if isinstance(by, str) else list(by)
     for _, (_, op) in aggs.items():
         if op not in tops._AGG_OPS:
@@ -526,6 +539,7 @@ def distributed_join(
     cluster in one key range, and each shard's rows arrive in (hash, key)
     order.  Equal keys still meet, and the local merge matches on the
     (hash, key) composite."""
+    _one_process(mesh, "distributed_join")
     if how not in ("inner", "left"):
         raise ValueError("how must be 'inner' or 'left'")
     _check_partition(partition)

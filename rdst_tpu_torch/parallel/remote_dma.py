@@ -18,13 +18,19 @@ bit, pads included.
 ``csrc/exchange.cu`` once per call, whatever the number of shards and
 planes, on PyTorch's current stream, with no host synchronisation; CPU
 planes run :func:`remote_dma_exchange_plain`, slice copies in PyTorch.
-Receive buffers are one allocation of D x capacity elements per plane,
-left empty: the kernel writes every word once, a received row or the pad
-word.  Receiver d's buffer is the view ``[d * capacity, (d + 1) *
-capacity)``.  All shards of an exchange lie on one device: stream order
-stands in for the reference's barrier.  Shards on several cards
-(peer-mapped destination pointers, events in place of the barrier) are
-later work.
+An exchange has S senders and R receivers: the size matrix is (S, R), and
+receive buffers are one allocation of R x capacity elements per plane, left
+empty: the kernel writes every word once, a received row or the pad word.
+Receiver d's buffer is the view ``[d * capacity, (d + 1) * capacity)``.
+Within one process S == R (every shard sends to every shard).  On a mesh
+that spans processes (``parallel/shuffle.py``) the receivers are this
+process's shards and the senders every shard of the group: a remote
+sender's plane is its block of the buffer that ``torch.distributed``
+delivered, its offsets the running sums of its segments.  All planes of a
+call lie on one device: stream order stands in for the reference's barrier
+(the collective that filled a remote block is ordered before the launch on
+the current stream).  Shards on several cards of one process (peer-mapped
+destination pointers, events in place of the barrier) are later work.
 
 Planes are u32.  Any other dtype raises ``TypeError`` before anything is
 allocated or launched: the reference's docstring promised a fallback for
@@ -50,20 +56,20 @@ PAD_WORD = 0xFFFFFFFF
 
 EXCHANGE = _build.Kernel(
     "remote_exchange", "rdst_remote_exchange",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                             ctypes.c_void_p, ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
 )
 
 
 class Layout(NamedTuple):
-    """Where every segment of an exchange lands, from the (D, D) size matrix
+    """Where every segment of an exchange lands, from the (S, R) size matrix
     ``sizes[s, d]`` (rows sender s sends receiver d)."""
 
-    #: (D, D) [s, d]: offset of sender s's segment in receiver d's buffer
+    #: (S, R) [s, d]: offset of sender s's segment in receiver d's buffer
     recv_offsets: torch.Tensor
-    #: (D, D) [s, d]: elements of that segment that land inside the buffer
+    #: (S, R) [s, d]: elements of that segment that land inside the buffer
     landed: torch.Tensor
-    #: (D,) rows each receiver is sent (its reported count)
+    #: (R,) rows each receiver is sent (its reported count)
     demand: torch.Tensor
 
 
@@ -80,9 +86,11 @@ def exchange_layout(size_matrix: torch.Tensor, capacity: int) -> Layout:
 
 
 def _check(planes, input_offsets, send_sizes):
-    D = len(planes)
-    if D < 1 or len(input_offsets) != D or len(send_sizes) != D:
+    """(S senders, R receivers, planes per sender)."""
+    S = len(planes)
+    if S < 1 or len(input_offsets) != S or len(send_sizes) != S:
         raise ValueError("one plane list, offset and size vector per sender")
+    R = int(send_sizes[0].shape[0]) if send_sizes[0].ndim == 1 else -1
     k = len(planes[0])
     for ps in planes:
         if len(ps) != k:
@@ -95,35 +103,36 @@ def _check(planes, input_offsets, send_sizes):
             if p.ndim != 1:
                 raise ValueError("exchange planes must be 1-D")
     for v in list(input_offsets) + list(send_sizes):
-        if v.shape != (D,):
-            raise ValueError(f"offsets and sizes must be ({D},) per sender")
-    return D, k
+        if R < 1 or v.shape != (R,):
+            raise ValueError("offsets and sizes must be one (R,) vector per "
+                             "sender, R >= 1 receivers")
+    return S, R, k
 
 
 def remote_dma_exchange_plain(planes, input_offsets, send_sizes, capacity):
     """Plain PyTorch version of B6: the same layout, by slice copies.
 
     Returns ``(recv, demand, arrived)``: ``recv[j]`` is plane j of every
-    receiver, (D * capacity,) with the pad word where nothing landed;
-    ``demand`` (D,) int64; ``arrived`` (planes, D) int64, the elements that
+    receiver, (R * capacity,) with the pad word where nothing landed;
+    ``demand`` (R,) int64; ``arrived`` (planes, R) int64, the elements that
     landed per receiver, min(demand, capacity)."""
-    D, k = _check(planes, input_offsets, send_sizes)
+    S, R, k = _check(planes, input_offsets, send_sizes)
     dev = planes[0][0].device
     offs = torch.stack([o.to(dev, torch.int64) for o in input_offsets])
     sizes = torch.stack([s.to(dev, torch.int64) for s in send_sizes])
     lay = exchange_layout(sizes, capacity)
     offs, dst, landed = offs.tolist(), lay.recv_offsets.tolist(), lay.landed.tolist()
-    recv = [P.full(D * capacity, PAD_WORD, torch.uint32, dev) for _ in range(k)]
+    recv = [P.full(R * capacity, PAD_WORD, torch.uint32, dev) for _ in range(k)]
     for j in range(k):
-        for s in range(D):
+        for s in range(S):
             EXCHANGE.plain_calls += 1
             src = planes[s][j]
-            for d in range(D):
+            for d in range(R):
                 m = landed[s][d]
                 if m:
                     o = d * capacity + dst[s][d]
                     recv[j][o: o + m] = src[offs[s][d]: offs[s][d] + m]
-    arrived = lay.landed.sum(0).expand(k, D).clone()
+    arrived = lay.landed.sum(0).expand(k, R).clone()
     return recv, lay.demand, arrived
 
 
@@ -131,7 +140,7 @@ def remote_dma_exchange_cuda(planes, input_offsets, send_sizes, capacity):
     """Launch B6 (``csrc/exchange.cu``) once for the whole exchange.  Same
     return as :func:`remote_dma_exchange_plain`; ``arrived`` is counted by
     the kernel."""
-    D, k = _check(planes, input_offsets, send_sizes)
+    S, R, k = _check(planes, input_offsets, send_sizes)
     flat = [p for ps in planes for p in ps]
     dev, _ = _build.check_cuda_planes(flat[:1], (torch.uint32,))
     for p in flat:
@@ -139,49 +148,51 @@ def remote_dma_exchange_cuda(planes, input_offsets, send_sizes, capacity):
             raise ValueError("exchange planes must be contiguous, on one CUDA device")
     offs = torch.stack([o.to(dev, torch.int64) for o in input_offsets])
     sizes = torch.stack([s.to(dev, torch.int64) for s in send_sizes])
-    recv = [torch.empty(D * capacity, dtype=torch.uint32, device=dev) for _ in range(k)]
-    arrived = torch.zeros((k, D), dtype=torch.int64, device=dev)
+    recv = [torch.empty(R * capacity, dtype=torch.uint32, device=dev) for _ in range(k)]
+    arrived = torch.zeros((k, R), dtype=torch.int64, device=dev)
     launch_all(planes, offs, sizes, recv, arrived, capacity)
     return recv, sizes.sum(0), arrived
 
 
 def _pointer_table(planes, recv, capacity) -> list[int]:
-    """The kernel's table of addresses: sender s's plane j at ``j * D + s``,
+    """The kernel's table of addresses: sender s's plane j at ``j * S + s``,
     then receiver d's buffer of plane j (``recv[j]`` from element
-    ``d * capacity``) at ``(k + j) * D + d``."""
-    D = len(planes)
-    src = [planes[s][j].data_ptr() for j in range(len(recv)) for s in range(D)]
-    dst = [r.data_ptr() + 4 * capacity * d for r in recv for d in range(D)]
+    ``d * capacity``; R = ``len(recv[j]) // capacity`` receivers) at
+    ``k * S + j * R + d``, ``(k + j) * D + d`` when S == R == D."""
+    S, R = len(planes), int(recv[0].shape[0]) // capacity
+    src = [planes[s][j].data_ptr() for j in range(len(recv)) for s in range(S)]
+    dst = [r.data_ptr() + 4 * capacity * d for r in recv for d in range(R)]
     return src + dst
 
 
 def launch_all(planes, offs, sizes, recv, arrived, capacity):
     """The one launch of an exchange, on buffers the caller prepared:
-    ``offs`` and ``sizes`` (D, D) int64 on the planes' device; ``recv`` one
-    (D * capacity,) u32 plane per sent plane, whatever it holds (every word
+    ``offs`` and ``sizes`` (S, R) int64 on the planes' device; ``recv`` one
+    (R * capacity,) u32 plane per sent plane, whatever it holds (every word
     is written, at :func:`exchange_layout`'s offsets, which the kernel sums
-    itself); adds the landed elements to ``arrived`` (planes, D).  Split
+    itself); adds the landed elements to ``arrived`` (planes, R).  Split
     out so the launch can be timed without the allocations."""
-    D = len(planes)
+    S = len(planes)
+    R = int(sizes.shape[-1])
     if not recv or capacity == 0:
         return  # no receive word to write
     dev = recv[0].device
     tabs = [t.contiguous() for t in (offs, sizes)]
     for t in tabs:
-        if t.dtype != torch.int64 or t.shape != (D, D) or t.device != dev:
-            raise ValueError(f"offsets and sizes must be ({D}, {D}) int64 on {dev}")
+        if t.dtype != torch.int64 or t.shape != (S, R) or t.device != dev:
+            raise ValueError(f"offsets and sizes must be ({S}, {R}) int64 on {dev}")
     for r in recv:
-        if (r.dtype != torch.uint32 or r.shape != (D * capacity,)
+        if (r.dtype != torch.uint32 or r.shape != (R * capacity,)
                 or not r.is_contiguous() or r.device != dev):
-            raise ValueError(f"receive planes must be ({D * capacity},) u32 on {dev}")
-    if arrived.dtype != torch.int64 or arrived.shape != (len(recv), D) \
+            raise ValueError(f"receive planes must be ({R * capacity},) u32 on {dev}")
+    if arrived.dtype != torch.int64 or arrived.shape != (len(recv), R) \
             or not arrived.is_contiguous() or arrived.device != dev:
-        raise ValueError(f"arrived must be ({len(recv)}, {D}) int64 on {dev}")
+        raise ValueError(f"arrived must be ({len(recv)}, {R}) int64 on {dev}")
     # pinned, so the copy is asynchronous: the host waits for nothing
     table = torch.tensor(_pointer_table(planes, recv, capacity),
                          dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
     EXCHANGE.launch(
-        dev, table.data_ptr(), *[t.data_ptr() for t in tabs], D, len(recv),
+        dev, table.data_ptr(), *[t.data_ptr() for t in tabs], S, R, len(recv),
         capacity, arrived.data_ptr(), _build.stream_of(recv[0]),
     )
 
@@ -192,11 +203,12 @@ def remote_dma_exchange(
     send_sizes: Sequence[torch.Tensor],
     capacity: int,
 ):
-    """Exchange contiguous per-destination segments among D shards.
+    """Exchange contiguous per-destination segments from S senders to R
+    receivers (S == R == D among the D shards of one process).
 
     ``planes[s]``: sender s's u32 planes; ``input_offsets[s]`` and
-    ``send_sizes[s]``: (D,) where s's segment for each destination starts
-    and how long it is.  Returns ``(recv, demand, arrived)`` as
+    ``send_sizes[s]``: (R,) where s's segment for each receiver starts and
+    how long it is.  Returns ``(recv, demand, arrived)`` as
     :func:`remote_dma_exchange_plain` describes.  CUDA planes launch the
     kernel (or raise); CPU planes run the plain version."""
     dev = planes[0][0].device.type

@@ -9,32 +9,41 @@ destination its contiguous segment; every shard sorts what it received.
 The device-major concatenation of the shards' valid rows is the global
 order.
 
-The JAX package runs the body inside ``shard_map``.  Here the shards of a
-:class:`~rdst_tpu_torch.parallel.mesh.Mesh` live in this process and the
-body runs in lockstep: per-shard values are lists over the shards, and the
-collectives are the mesh's methods.  The exchange is kernel B6
-(``parallel/remote_dma.py``) on CUDA shards and its plain version on CPU
-shards.  Outputs keep the JAX package's conventions: each plane is one
-(D * capacity,) tensor laid out device-major, with a (D,) ``counts`` tensor
+The JAX package runs the body inside ``shard_map``.  Here each process
+runs the body in lockstep over the shards of a
+:class:`~rdst_tpu_torch.parallel.mesh.Mesh` that it holds (all of them, or
+one block after ``init_distributed``): per-shard values are lists over
+``mesh.shards``, and the collectives are the mesh's methods.  The exchange
+is kernel B6 (``parallel/remote_dma.py``) on CUDA shards and its plain
+version on CPU shards.  Outputs keep the JAX package's conventions: each
+plane is one (L * capacity,) tensor laid out shard-major over this
+process's L shards (L = D in one process), with the global (D,) ``counts``
 of each shard's demand, and :func:`gather_valid` raises ``OverflowError``
 where a demand exceeds the capacity.  On the flat mesh the outputs are the
 exchange's own receive buffers, each shard's sorted rows written back into
 its view.
 
-Not ported, by design:
-  * the dense ``all_to_all`` emulation (shuffle.py:807-820): it exists only
-    because XLA:CPU lacks ``ragged_all_to_all``.  The exchange here always
-    has the exact ragged layout; ``use_ragged`` is accepted and has no
-    effect;
-  * ``init_distributed``: it belongs to a multi-process backend (one shard
-    per process), which does not exist yet; NCCL does not allow two ranks
-    of one communicator on one device, so on one card such a backend runs
-    one rank.
-The D == 1 exchange stays an identity, as the JAX package's semantics; the
-libtpu fault that motivated it there does not apply.
+A group of shards that lies in more than one process exchanges in four
+steps (:func:`_exchange_across`): an ``all_gather`` of every sender's
+sizes; one host read of that size matrix (with this process's send
+offsets), because ``all_to_all_single`` takes its split sizes on the host;
+one ``all_to_all_single`` of exactly the words that land; and B6, whose
+senders are the group's shards (local ones from their own planes, remote
+ones from the transport buffer) and whose receivers are this process's.
 
-No step of a call waits for the device except :func:`distributed_sort_auto`
-(which reads the counts) and :func:`gather_valid`.
+Not ported, by design: the dense ``all_to_all`` emulation
+(shuffle.py:807-820), which exists only because XLA:CPU lacks
+``ragged_all_to_all``.  The exchange here always has the exact ragged
+layout; ``use_ragged`` is accepted and has no effect.  The D == 1 exchange
+stays an identity, as the JAX package's semantics; the libtpu fault that
+motivated it there does not apply.
+
+In one process no step of a call waits for the device except
+:func:`distributed_sort_auto` (which reads the counts) and
+:func:`gather_valid`.  On a mesh that spans processes under NCCL, each
+exchange adds one wait: the read of the size matrix.  Under gloo every
+collective of the mesh (the histograms, extrema and counts as well) is a
+blocking round trip through the CPU (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
@@ -48,12 +57,13 @@ from rdst_tpu_torch import _planes as P
 from rdst_tpu_torch import config
 from rdst_tpu_torch.ops.fused_sort import fused_sort, fused_sort_available
 from rdst_tpu_torch.ops.merge import merge_sorted
-from rdst_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d
+from rdst_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh, make_mesh_2d
 from rdst_tpu_torch.parallel.remote_dma import PAD_WORD, remote_dma_exchange
 
 __all__ = [
     "distributed_sort", "distributed_sort_auto", "partition_exchange",
-    "gather_valid", "make_mesh", "make_mesh_2d", "N_BUCKETS", "PAD_WORD",
+    "gather_valid", "init_distributed", "make_mesh", "make_mesh_2d",
+    "N_BUCKETS", "PAD_WORD",
 ]
 
 #: Partition granularity: 16 window bits (shuffle.py N_BUCKETS).
@@ -153,9 +163,9 @@ def _single_key(mesh, keys, edges, hists, n_local):
 
 def _shard_body(mesh, n_keys, capacity, stage1_cap, stable, split_uniform,
                 return_partition, overlap, refine_levels, shards):
-    """The shard_map body of the JAX package, in lockstep over the shards.
-    ``shards[s]``: shard s's word and payload planes.  Returns (output
-    planes, counts, partition or None)."""
+    """The shard_map body of the JAX package, in lockstep over this
+    process's shards.  ``shards[i]``: shard ``mesh.shards[i]``'s word and
+    payload planes.  Returns (output planes, counts, partition or None)."""
     D = mesh.size
     dev = mesh.device
     n_local = int(shards[0][0].shape[0])
@@ -191,8 +201,8 @@ def _shard_body(mesh, n_keys, capacity, stage1_cap, stable, split_uniform,
     Rd[D] = total
     atomic_below = (cum_mid[None, :] < Rd[:, None]).to(_I64)
     take_lt = []
-    for s in range(D):
-        c_me = hists[s][None, :]
+    for i, s in enumerate(mesh.shards):
+        c_me = hists[i][None, :]
         take = atomic_below * c_me
         if split_uniform:
             o_me = hist_matrix[:s].sum(0)
@@ -200,7 +210,7 @@ def _shard_body(mesh, n_keys, capacity, stage1_cap, stable, split_uniform,
             take_uniform = torch.minimum(torch.clamp(cut, min=0), c_me)
             take = torch.where(uniform[None, :], take_uniform, take)
         take_lt.append(take)
-    extra = [torch.zeros(D + 1, dtype=_I64, device=dev)] * D
+    extra = [torch.zeros(D + 1, dtype=_I64, device=dev)] * len(shards)
     if refine_levels > 0 and split_uniform and not return_partition and D > 1:
         take_lt, extra = _refined_assignment(
             mesh, keys, edges, global_hist, uniform, take_lt, bstart, Rd,
@@ -248,7 +258,7 @@ def _refined_assignment(mesh, keys, edges, global_hist, uniform, take_lt,
     active = (_at(global_hist, hot) > total // (2 * D)) & ~_at(uniform, hot)
     drop = ((riota == hot) & active)[None, :]
     take_lt = [torch.where(drop, 0, t) for t in take_lt]
-    extra = [torch.zeros(D + 1, dtype=_I64, device=dev) for _ in range(D)]
+    extra = [torch.zeros(D + 1, dtype=_I64, device=dev) for _ in keys]
     for lvl in range(levels):
         # exact per-word extrema over the chain segment of every shard
         in_seg = [(iota >= lo) & (iota < hi) for lo, hi in zip(seg_lo, seg_hi)]
@@ -276,15 +286,15 @@ def _refined_assignment(mesh, keys, edges, global_hist, uniform, take_lt,
         active_next = (active & (_at(rglobal, hot2) > total // (2 * D))
                        & ~_at(runi, hot2) & (lvl < levels - 1))
         drop2 = ((riota == hot2) & active_next)[None, :]
-        for s in range(D):
-            rh = rhists[s][None, :]
+        for i, s in enumerate(mesh.shards):
+            rh = rhists[i][None, :]
             cut2 = Rd[:, None] - (rb_start + rmatrix[:s].sum(0))[None, :]
             uni2 = torch.minimum(torch.clamp(cut2, min=0), rh)
             take2 = torch.where(runi[None, :], uni2, atomic2 * rh)
             take2 = torch.where(drop2, 0, take2)
-            extra[s] = extra[s] + torch.where(active, take2.sum(1), 0)
-            seg_lo[s] = _at(redges[s], hot2)
-            seg_hi[s] = _at(redges[s], hot2 + 1)
+            extra[i] = extra[i] + torch.where(active, take2.sum(1), 0)
+            seg_lo[i] = _at(redges[i], hot2)
+            seg_hi[i] = _at(redges[i], hot2 + 1)
         base_rank = _at(rb_start, hot2)
         active = active_next
     return take_lt, extra
@@ -295,36 +305,135 @@ def _refined_assignment(mesh, keys, edges, global_hist, uniform, take_lt,
 # ---------------------------------------------------------------------------
 
 
-def _exchange_raw(planes, input_offsets, send_sizes, capacity, groups):
+def _exchange_raw(mesh, planes, input_offsets, send_sizes, capacity, groups):
     """The bare exchange inside each group of shards (all to all).
 
-    Returns (recv, n_valid, bufs): ``recv[s]`` shard s's capacity-length
+    Per-shard lists run over this process's shards (``mesh.shards``); the
+    groups hold flat shard indices.  Returns
+    (recv, n_valid, bufs): ``recv[i]`` local shard i's capacity-length
     planes (views of its group's receive buffers, the pad word where
-    nothing landed), ``n_valid[s]`` the rows sent to it (its demand, which
-    may exceed the capacity), ``bufs[g]`` group g's receive buffers."""
+    nothing landed), ``n_valid[i]`` the rows sent to it (its demand, which
+    may exceed the capacity), ``bufs`` the receive buffers of each group
+    with a shard here, in group order."""
+    if mesh.spans(groups):
+        return _exchange_across(mesh, planes, input_offsets, send_sizes,
+                                capacity, groups)
+    first = mesh.shards.start
     recv = [None] * len(planes)
     n_valid = [None] * len(planes)
     bufs = []
     for g in groups:
+        if mesh.owner(g[0]) != mesh.rank:
+            continue  # another process's group
         if len(g) == 1:
             # a 1-shard group: the exchange is an identity
-            s = g[0]
-            tail = capacity - int(planes[s][0].shape[0])
-            recv[s] = [
+            i = g[0] - first
+            tail = capacity - int(planes[i][0].shape[0])
+            recv[i] = [
                 P.cat([a, P.full(tail, PAD_WORD, a.dtype, a.device)])
                 if tail > 0 else a[:capacity].clone()
-                for a in planes[s]
+                for a in planes[i]
             ]
-            n_valid[s] = send_sizes[s].sum()
-            bufs.append(recv[s])
+            n_valid[i] = send_sizes[i].sum()
+            bufs.append(recv[i])
             continue
         rb, demand, _ = remote_dma_exchange(
-            [planes[s] for s in g], [input_offsets[s] for s in g],
-            [send_sizes[s] for s in g], capacity,
+            [planes[s - first] for s in g], [input_offsets[s - first] for s in g],
+            [send_sizes[s - first] for s in g], capacity,
         )
-        for i, s in enumerate(g):
-            recv[s] = [b[i * capacity:(i + 1) * capacity] for b in rb]
-            n_valid[s] = demand[i]
+        for r, s in enumerate(g):
+            recv[s - first] = [b[r * capacity:(r + 1) * capacity] for b in rb]
+            n_valid[s - first] = demand[r]
+        bufs.append(rb)
+    return recv, n_valid, bufs
+
+
+def _exchange_across(mesh, planes, input_offsets, send_sizes, capacity, groups):
+    """:func:`_exchange_raw` for groups whose shards lie in several
+    processes: (a) ``all_gather`` of every sender's sizes, (b) one host read
+    of them with this process's offsets, (c) one ``all_to_all_single`` of
+    the words that land on another process's shards, (d) one B6 call per
+    group with a shard here: S = every shard of the group, R = this
+    process's."""
+    first = mesh.shards.start
+    k = len(planes[0])
+    dev = planes[0][0].device
+    # (a) and (b): ``all_to_all_single`` takes its split sizes on the host,
+    # so every sender's sizes, (D, G), and this process's offsets, (L, G),
+    # are read here, once per exchange
+    host = mesh.read_gathered(send_sizes, input_offsets)
+    sz, off = host[:mesh.size], host[mesh.size:]
+    # what lands: a receiver's segments, in sender order, up to the capacity
+    fit = np.zeros_like(sz)
+    group_of = {}  # shard -> its group
+    for g in groups:
+        col = sz[g]
+        lo = np.cumsum(col, 0) - col
+        fit[g] = np.clip(np.minimum(col, capacity - lo), 0, None)
+        group_of.update((s, g) for s in g)
+
+    def toward(s, q):
+        """Positions in shard s's group of the shards rank q holds."""
+        return [b for b, r in enumerate(group_of[s]) if mesh.owner(r) == q]
+
+    # (c) the transport: to each rank, for each local sender, for each
+    # plane, the landing part of its segments for that rank's shards
+    pieces, send_counts = [], []
+    for q in range(mesh.world):
+        n = 0
+        for s in mesh.shards if q != mesh.rank else ():
+            segs = [(int(off[s - first, b]), int(fit[s, b])) for b in toward(s, q)]
+            for j in range(k):
+                for o, m in segs:
+                    if m:
+                        pieces.append(P.sview(planes[s - first][j][o:o + m]))
+                        n += m
+        send_counts.append(n)
+    recv_counts, block = [], {}  # block: remote sender -> (start, words a plane)
+    for p in range(mesh.world):
+        n = 0
+        for s in range(p * mesh.n_local, (p + 1) * mesh.n_local) if p != mesh.rank else ():
+            t = int(fit[s, toward(s, mesh.rank)].sum())
+            block[s] = (sum(recv_counts) + n, t)
+            n += k * t
+        recv_counts.append(n)
+    send = torch.cat(pieces) if pieces else torch.empty(0, dtype=torch.int32, device=dev)
+    moved = mesh.all_to_all(send, send_counts, recv_counts)
+    del send, pieces
+
+    # (d) B6: local senders from their planes, remote ones from ``moved``
+    recv = [None] * len(planes)
+    n_valid = [None] * len(planes)
+    bufs, calls, tables = [], [], []  # tables: per call, offsets then sizes
+    for g in groups:
+        mine = [b for b, r in enumerate(g) if mesh.owner(r) == mesh.rank]
+        if not mine:
+            continue
+        src = []
+        for s in g:
+            if mesh.owner(s) == mesh.rank:
+                src.append(planes[s - first])
+                tables.append(off[s - first, mine])
+            else:
+                start, t = block[s]
+                src.append([moved[start + j * t:start + (j + 1) * t].view(torch.uint32)
+                            for j in range(k)])
+                tables.append(np.cumsum(fit[s, mine]) - fit[s, mine])
+            tables.append(sz[s, mine])
+        calls.append((g, mine, src))
+    # every call's offsets and sizes reach the device in one copy
+    tab = torch.from_numpy(np.concatenate(tables).astype(np.int64))
+    if dev.type == "cuda":
+        tab = tab.pin_memory().to(dev, non_blocking=True)
+    at = 0
+    for g, mine, src in calls:
+        rows = tab[at:at + 2 * len(g) * len(mine)].view(len(g), 2, len(mine))
+        at += 2 * len(g) * len(mine)
+        rb, demand, _ = remote_dma_exchange(src, list(rows[:, 0]), list(rows[:, 1]),
+                                            capacity)
+        for r, b in enumerate(mine):
+            recv[g[b] - first] = [x[r * capacity:(r + 1) * capacity] for x in rb]
+            n_valid[g[b] - first] = demand[r]
         bufs.append(rb)
     return recv, n_valid, bufs
 
@@ -346,13 +455,13 @@ def _pad_pow2(p, cap2):
     return P.cat([p, P.full(extra, PAD_WORD, p.dtype, p.device)]) if extra else p
 
 
-def _exchange_once(planes, n_keys, input_offsets, send_sizes, capacity,
+def _exchange_once(mesh, planes, n_keys, input_offsets, send_sizes, capacity,
                    stable, groups):
     """One exchange plus each shard's sort of what it received.  Returns
     (per-shard capacity planes LED by the validity plane, counts, receive
     buffers)."""
     recv, n_valid, bufs = _exchange_raw(
-        planes, input_offsets, send_sizes, capacity, groups)
+        mesh, planes, input_offsets, send_sizes, capacity, groups)
     out = []
     for r, nv in zip(recv, n_valid):
         v = _validity(nv, capacity, r[0].device)
@@ -364,45 +473,45 @@ def _exchange_and_finish(mesh, sorted_all, n_keys, input_offsets, send_sizes,
                          capacity, stable, overlap, stage1_cap):
     """Exchange the locally sorted planes and sort every shard's receipt.
     Takes ownership of ``sorted_all`` (cleared once sent).  Returns (planes
-    of D * capacity, (D,) counts)."""
+    of L * capacity for this process's L shards, (D,) counts)."""
     if len(mesh.axis_names) == 2:
         return _hier_exchange_and_finish(
             mesh, sorted_all, n_keys, input_offsets, send_sizes, capacity,
             stable, overlap, stage1_cap,
         )
     D = mesh.size
-    groups = [list(mesh.shards)]
+    groups = [list(range(D))]
     if overlap and D > 1:
         # two phases split by SENDER half; phase-1 senders all precede
         # phase-2 senders, and the merge's a-side wins ties
         half = D // 2
         sizes1 = [sz if s < half else torch.zeros_like(sz)
-                  for s, sz in enumerate(send_sizes)]
+                  for s, sz in zip(mesh.shards, send_sizes)]
         sizes2 = [sz - s1 for sz, s1 in zip(send_sizes, sizes1)]
-        q1, v1, _ = _exchange_once(sorted_all, n_keys, input_offsets, sizes1,
-                                   capacity, stable, groups)
-        q2, v2, bufs = _exchange_once(sorted_all, n_keys, input_offsets,
+        q1, v1, _ = _exchange_once(mesh, sorted_all, n_keys, input_offsets,
+                                   sizes1, capacity, stable, groups)
+        q2, v2, bufs = _exchange_once(mesh, sorted_all, n_keys, input_offsets,
                                       sizes2, capacity, stable, groups)
         sorted_all.clear()
         cap2 = 1 << max(0, (capacity - 1).bit_length())
         out = bufs[0]
-        for s in range(D):
+        for i in range(len(q1)):
             merged = merge_sorted(
-                [_pad_pow2(p, cap2) for p in q1[s]],
-                [_pad_pow2(p, cap2) for p in q2[s]], 1 + n_keys, stable=stable,
+                [_pad_pow2(p, cap2) for p in q1[i]],
+                [_pad_pow2(p, cap2) for p in q2[i]], 1 + n_keys, stable=stable,
             )
-            q1[s] = q2[s] = None
-            _write_back([b[s * capacity:(s + 1) * capacity] for b in out],
+            q1[i] = q2[i] = None
+            _write_back([b[i * capacity:(i + 1) * capacity] for b in out],
                         [p[:capacity] for p in merged[1:]])
-        return out, torch.stack(v1) + torch.stack(v2)
+        return out, mesh.all_gather([a + b for a, b in zip(v1, v2)])
     recv, n_valid, bufs = _exchange_raw(
-        sorted_all, input_offsets, send_sizes, capacity, groups)
+        mesh, sorted_all, input_offsets, send_sizes, capacity, groups)
     sorted_all.clear()
     for r, nv in zip(recv, n_valid):
         v = _validity(nv, capacity, r[0].device)
         fin = _local_sort([v] + r, 1 + n_keys, stable)
         _write_back(r, [p[:capacity] for p in fin[1:]])
-    return bufs[0], torch.stack(n_valid)
+    return bufs[0], mesh.all_gather(n_valid)
 
 
 def _hier_phase(mesh, planes, n_keys, input_offsets, send_sizes, capacity,
@@ -419,52 +528,53 @@ def _hier_phase(mesh, planes, n_keys, input_offsets, send_sizes, capacity,
     dev = mesh.device
     iota = torch.arange(n_local, device=dev)
     ex, hs_off, hs_sizes = [], [], []
-    for s in range(mesh.size):
+    for i, s in enumerate(mesh.shards):
         # per-element flat destination, computed once on the source shard
-        ends = input_offsets[s] + send_sizes[s]
+        ends = input_offsets[i] + send_sizes[i]
         dest = torch.searchsorted(ends, iota, right=True)
-        ex_s = list(planes[s]) + [P.narrow(dest, torch.uint32)]
+        ex_s = list(planes[i]) + [P.narrow(dest, torch.uint32)]
         if stable:
             ex_s.append(P.full(n_local, s, torch.uint32, dev))
         ex.append(ex_s)
-        hs_sizes.append(send_sizes[s].view(H, C).sum(1))
-        hs_off.append(input_offsets[s].view(H, C)[:, 0])
+        hs_sizes.append(send_sizes[i].view(H, C).sum(1))
+        hs_off.append(input_offsets[i].view(H, C)[:, 0])
 
     # stage 1: one contiguous block per destination host, along the host axis
-    p1, n1, _ = _exchange_raw(ex, hs_off, hs_sizes, stage1_cap,
+    p1, n1, _ = _exchange_raw(mesh, ex, hs_off, hs_sizes, stage1_cap,
                               mesh.groups(host_ax))
     del ex
     # stage 2: regroup by destination chip (pads route to C and sort last)
     routed, off2, sz2 = [], [], []
     cs = torch.arange(C + 1, device=dev)
-    for s in range(mesh.size):
-        valid1 = torch.arange(stage1_cap, device=dev) < n1[s]
-        route = torch.where(valid1, P.widen(p1[s][k]) % C, C)
-        srt = _local_sort([P.narrow(route, torch.uint32)] + p1[s], 1, True)
-        p1[s] = None
+    for i in range(len(p1)):
+        valid1 = torch.arange(stage1_cap, device=dev) < n1[i]
+        route = torch.where(valid1, P.widen(p1[i][k]) % C, C)
+        srt = _local_sort([P.narrow(route, torch.uint32)] + p1[i], 1, True)
+        p1[i] = None
         routed.append(srt[1:])
         bounds = torch.searchsorted(P.widen(srt[0]), cs)
         off2.append(bounds[:-1])
         sz2.append(bounds[1:] - bounds[:-1])
-    p2, n2, _ = _exchange_raw(routed, off2, sz2, capacity, mesh.groups(chip_ax))
+    p2, n2, _ = _exchange_raw(mesh, routed, off2, sz2, capacity,
+                              mesh.groups(chip_ax))
     del routed
 
     finished, counts = [], []
-    for s in range(mesh.size):
-        out = p2[s][:k]
-        v = _validity(n2[s], capacity, dev)
+    for i in range(len(p2)):
+        out = p2[i][:k]
+        v = _validity(n2[i], capacity, dev)
         if stable:
             # the source shard follows the keys in compare order
-            sort_planes = [v] + out[:n_keys] + [p2[s][k + 1]] + out[n_keys:]
+            sort_planes = [v] + out[:n_keys] + [p2[i][k + 1]] + out[n_keys:]
             nk_sort = 2 + n_keys
         else:
             sort_planes = [v] + out
             nk_sort = 1 + n_keys
         finished.append([p[:capacity] for p in
                          _local_sort(sort_planes, nk_sort, stable)])
-        p2[s] = None
-        counts.append(torch.where(n1[s] > stage1_cap,
-                                  torch.maximum(n1[s], n2[s]), n2[s]))
+        p2[i] = None
+        counts.append(torch.where(n1[i] > stage1_cap,
+                                  torch.maximum(n1[i], n2[i]), n2[i]))
     return finished, counts
 
 
@@ -477,7 +587,7 @@ def _hier_exchange_and_finish(mesh, planes, n_keys, input_offsets, send_sizes,
     if overlap and H > 1:
         half = H // 2
         sizes1 = [sz if s // C < half else torch.zeros_like(sz)
-                  for s, sz in enumerate(send_sizes)]
+                  for s, sz in zip(mesh.shards, send_sizes)]
         sizes2 = [sz - s1 for sz, s1 in zip(send_sizes, sizes1)]
         q1, v1 = _hier_phase(mesh, planes, n_keys, input_offsets, sizes1,
                              capacity, stage1_cap, stable)
@@ -491,13 +601,13 @@ def _hier_exchange_and_finish(mesh, planes, n_keys, input_offsets, send_sizes,
                                   [_pad_pow2(p, cap2) for p in b], 1 + n_keys,
                                   stable=stable)
             per_shard.append([p[:capacity] for p in merged[1:]])
-        counts = torch.stack(v1) + torch.stack(v2)
+        counts = mesh.all_gather([a + b for a, b in zip(v1, v2)])
     else:
         q, v = _hier_phase(mesh, planes, n_keys, input_offsets, send_sizes,
                            capacity, stage1_cap, stable)
         planes.clear()
         per_shard = [x[1:] for x in q]
-        counts = torch.stack(v)
+        counts = mesh.all_gather(v)
     if stable:
         per_shard = [x[:n_keys] + x[n_keys + 1:] for x in per_shard]
     outs = [P.cat([x[j] for x in per_shard]) for j in range(len(per_shard[0]))]
@@ -536,14 +646,18 @@ def _to_planes(words, payloads, mesh: Mesh):
 
 
 def _shard(planes, mesh: Mesh):
-    D = mesh.size
+    """This process's shards of the rows it holds (all rows in one process,
+    its own ``L * n_local`` on a mesh over processes) and the global row
+    count."""
+    L = mesh.n_local
     n = int(planes[0].shape[0])
     if any(int(p.shape[0]) != n for p in planes):
         raise ValueError("every plane must have the same length")
-    if n % D != 0:
-        raise ValueError(f"global length {n} not divisible by mesh size {D}")
-    n_local = n // D
-    return [[p[s * n_local:(s + 1) * n_local] for p in planes] for s in range(D)], n
+    if n % L != 0:
+        raise ValueError(f"length {n} not divisible by the {L} shards of this process")
+    n_local = n // L
+    return ([[p[i * n_local:(i + 1) * n_local] for p in planes] for i in range(L)],
+            n_local * mesh.size)
 
 
 def _split(outs, n_words, pay_dtypes):
@@ -575,7 +689,10 @@ def distributed_sort(
     mesh size, shard s holding rows ``[s * n_local, (s + 1) * n_local)``.
     Returns ``(words, payloads, counts)``: each plane (D * capacity,) on the
     mesh's device, shard d's valid rows at ``[d * capacity, d * capacity +
-    counts[d])``, their concatenation in shard order the global order.
+    counts[d])``, their concatenation in shard order the global order.  On
+    a mesh over processes each process passes its own shards' rows (``L *
+    n_local``, L = ``len(mesh.shards)``) and gets their planes, (L *
+    capacity,), with the global (D,) counts.
 
     ``split_uniform=False`` keeps every bucket on one shard;
     ``return_partition=True`` appends the partition state (gmins, shifts,
@@ -676,12 +793,11 @@ def distributed_sort_auto(
     shard's demand fits or ``max_capacity_factor`` is passed (then
     ``OverflowError``).  Reads the counts on the host after each try."""
     f = capacity_factor
-    D = mesh.size
     while True:
         out = distributed_sort(words, payloads, mesh=mesh, capacity_factor=f,
                                **kwargs)
-        counts = out[2].cpu().numpy()
-        cap = int(out[0][0].shape[0]) // D
+        counts = out[2].cpu().numpy()  # global: every rank decides alike
+        cap = int(out[0][0].shape[0]) // mesh.n_local
         if int(counts.max(initial=0)) <= cap:
             return out
         if f >= max_capacity_factor:
@@ -692,22 +808,38 @@ def distributed_sort_auto(
         f = min(f * 2.0, max_capacity_factor)
 
 
-def gather_valid(planes: Sequence, counts) -> list[np.ndarray]:
+def gather_valid(planes: Sequence, counts, *, mesh: Mesh | None = None
+                 ) -> list[np.ndarray]:
     """Host helper: the valid device-major slices, concatenated, as numpy.
-    Raises ``OverflowError`` where a shard's demand exceeds its capacity."""
+    Raises ``OverflowError`` where a shard's demand exceeds its capacity.
+
+    Pass the ``mesh`` of a call over processes: ``planes`` are then this
+    process's shards and every rank gets the whole global order (each
+    rank's valid rows, gathered after the counts)."""
     if isinstance(counts, torch.Tensor):
         counts = counts.cpu().numpy()
     counts = np.asarray(counts)
     D = counts.shape[0]
+    first, L = (0, D) if mesh is None else (mesh.shards.start, mesh.n_local)
+    mine = counts[first:first + L]
     out = []
     for p in planes:
         p = (p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p))
-        p = p.reshape(D, -1)
+        p = p.reshape(L, -1)
         cap = p.shape[1]
         if (counts > cap).any():
             raise OverflowError(
                 f"device received {int(counts.max())} rows > capacity {cap}; "
                 "increase capacity_factor"
             )
-        out.append(np.concatenate([p[d, : counts[d]] for d in range(D)]))
-    return out
+        out.append(np.concatenate([p[i, : mine[i]] for i in range(L)]))
+    if mesh is None or not mesh.processes or not out:
+        return out
+    # the ranks' valid rows, padded to the longest, through one all_gather
+    per_rank = counts.reshape(mesh.world, L).sum(1)
+    rows = np.zeros((len(out), int(per_rank.max())), np.int64)
+    for r, o in zip(rows, out):
+        r[:o.size] = o.view(np.int32)  # 4-byte planes, widened for the collective
+    got = mesh.gather_blocks(torch.from_numpy(rows)).cpu().numpy()
+    return [np.concatenate([got[q, j, :per_rank[q]] for q in range(mesh.world)])
+            .astype(np.int32).view(o.dtype) for j, o in enumerate(out)]

@@ -495,6 +495,69 @@ def test_remote_exchange_kernel(dev, D, case, cap, k, shift):
     assert torch.equal(arr, warrived)
 
 
+@pytest.mark.parametrize("S,R,case,cap", [
+    (8, 4, "random", 9001), (8, 1, "overflow", 3001), (2, 4, "edges", 1 << 14),
+    (3, 5, "overflow", 2050),
+])
+def test_remote_exchange_kernel_rectangular(dev, S, R, case, cap):
+    """B6 with S senders and R receivers (a mesh over processes: R local
+    shards, S shards in the group) against its plain version: buffers
+    bit-equal, pads included, arrivals and demand; one launch per call.
+    Senders start at every residue mod 4 (a remote sender's block lies
+    anywhere in the transport buffer).  Receivers [lo, lo + R) of the
+    square exchange of S shards give the same buffers."""
+    D, n_local, k = max(S, R), 1 << 14, 2
+    _, offs, sizes, sm = _exchange_inputs(dev, D, n_local, case, S * 10 + R)
+    lo = D - R
+    store = _planes(dev, S * (n_local + 4), [torch.uint32] * k, S + R)
+    planes = [[p[s * (n_local + 4) + s % 4:][:n_local] for p in store] for s in range(S)]
+    offs = [o[lo:].contiguous() for o in offs[:S]]
+    sizes = [z[lo:].contiguous() for z in sizes[:S]]
+    before = rd.EXCHANGE.launches
+    got, demand, arrived = rd.remote_dma_exchange_cuda(planes, offs, sizes, cap)
+    torch.cuda.synchronize()
+    assert rd.EXCHANGE.launches == before + 1
+    assert got[0].shape == (R * cap,) and arrived.shape == (len(got), R)
+    want, wdemand, warrived = rd.remote_dma_exchange_plain(planes, offs, sizes, cap)
+    _same(got, want)
+    assert torch.equal(demand, wdemand) and torch.equal(arrived, warrived)
+    np.testing.assert_array_equal(demand.cpu().numpy(), sm[:S, lo:].sum(0))
+    if S == D:
+        square, _, _ = rd.remote_dma_exchange_plain(
+            planes, [torch.cat([torch.zeros(lo, dtype=torch.int64, device=dev), o])
+                     for o in offs],
+            [torch.cat([torch.zeros(lo, dtype=torch.int64, device=dev), z])
+             for z in sizes], cap)
+        _same([x[lo * cap:] for x in square], got)
+
+
+def test_remote_exchange_after_a_collective(dev, tmp_path):
+    """Stream order with NCCL: a sender's block written just before by an
+    ``all_to_all_single`` (one rank, on NCCL's own stream) is what B6 reads
+    right after it on the current stream; the source was itself written
+    just before the collective."""
+    import torch.distributed as dist
+    tpar.init_distributed(init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                          world_size=1)
+    try:
+        n, cap = 1 << 22, (1 << 22) + 5
+        src = torch.empty(n, dtype=torch.int32, device=dev)
+        for _ in range(3):
+            src.random_()  # written just before the collective
+            moved = torch.empty_like(src)
+            dist.all_to_all_single(moved, src)
+            moved = moved.view(torch.uint32)
+            got, demand, _ = rd.remote_dma_exchange_cuda(
+                [[moved]], [torch.zeros(1, dtype=torch.int64, device=dev)],
+                [torch.full((1,), n, dtype=torch.int64, device=dev)], cap)
+            torch.cuda.synchronize()
+            assert torch.equal(P.sview(got[0][:n]), src)
+            assert int(demand[0]) == n
+            assert bool((P.sview(got[0][n:]) == -1).all())
+    finally:
+        dist.destroy_process_group()
+
+
 def _u64_on(dev, n, seed, high=None):
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 2**64 if high is None else high, size=n, dtype=np.uint64)

@@ -83,7 +83,7 @@ def _port_exchange(planes, offs, sizes, capacity):
     shards = [[torch.from_numpy(p[s * n_local:(s + 1) * n_local].copy())
                for p in planes] for s in range(D)]
     recv, n_valid, bufs = tshuffle._exchange_raw(
-        shards, [torch.from_numpy(o) for o in offs],
+        tshuffle.make_mesh(D, device="cpu"), shards, [torch.from_numpy(o) for o in offs],
         [torch.from_numpy(z) for z in sizes], capacity, [list(range(D))],
     )
     valid = torch.cat([torch.arange(capacity) < nv for nv in n_valid])
@@ -222,8 +222,11 @@ def _kernel_model(mem, shift, offs, sm, cap, chunk):
     copies the part of each sender's segment that lands there (at the sum
     of the earlier senders' sizes), pads the part at or past min(demand,
     capacity) and adds what landed to arrived[j, d].  ``mem[s][j]``: sender
-    s's storage, its plane starting at word ``shift``."""
-    D, k = len(mem), len(mem[0])
+    s's storage, its plane starting at word ``shift`` (one for all senders,
+    or a list of one per sender); ``sm`` (S, R): S senders, R receivers."""
+    S, k = len(mem), len(mem[0])
+    D = sm.shape[1]
+    shifts = shift if isinstance(shift, list) else [shift] * S
     out = [np.zeros(D * cap, np.uint32) for _ in range(k)]
     writes = [np.zeros(D * cap, np.int64) for _ in range(k)]
     arrived = np.zeros((k, D), np.int64)
@@ -232,13 +235,13 @@ def _kernel_model(mem, shift, offs, sm, cap, chunk):
             for p0 in range(0, cap, chunk):
                 p1 = min(p0 + chunk, cap)
                 fill = landed = lo = 0
-                for s in range(D):
+                for s in range(S):
                     fit = max(0, min(int(sm[s, d]), cap - lo))
                     fill += fit
                     a, b = max(p0, lo), min(p1, lo + fit)
                     if a < b:
                         _copy_model(out[j], writes[j], d * cap + a, mem[s][j],
-                                    shift + int(offs[s, d]) + a - lo, b - a)
+                                    shifts[s] + int(offs[s, d]) + a - lo, b - a)
                         landed += b - a
                     lo += int(sm[s, d])
                 a = max(p0, fill)
@@ -294,3 +297,98 @@ def test_non_u32_plane_raises_before_any_write(bad):
     with pytest.raises(TypeError):
         rd.remote_dma_exchange(planes, offs, sizes, 64)
     assert rd.EXCHANGE.plain_calls == before
+
+
+def _rect_matrix(rng, S, R, n_local, case):
+    """(S, R) sizes, each row summing to <= n_local: empty segments, a
+    sender that sends nothing, a receiver that gets nothing; "overflow"
+    sends receiver 0 more than its capacity."""
+    m = np.minimum(rng.integers(0, 2 * n_local // max(R, 2), size=(S, R)),
+                   n_local // (2 * R))
+    m[0, 0] = 0
+    if R > 1:
+        m[:, R - 1] = 0
+    if case == "overflow":
+        m[:, 0] = n_local // 2
+    m[S - 1, :] = 0
+    return m.astype(np.int64)
+
+
+@pytest.mark.parametrize("case", ["edges", "overflow"])
+@pytest.mark.parametrize("S,R", [(8, 4), (8, 2), (4, 1), (3, 5), (2, 8)])
+def test_exchange_kernel_model_rectangular(S, R, case):
+    """S senders by R receivers, as on a mesh over processes (R: this
+    process's shards; a remote sender's plane starts anywhere in the
+    transport buffer): every receive word written once, buffers (pads
+    included) and arrivals equal to the plain version's, with each sender's
+    plane at its own word offset mod 4, empty segments and overflow."""
+    rng = np.random.default_rng(S * 100 + R * 10 + len(case))
+    n_local, k = 301, 2
+    sm = _rect_matrix(rng, S, R, n_local, case)
+    offs = np.cumsum(sm, 1) - sm + rng.integers(0, n_local - sm.sum(1) + 1)[:, None]
+    cap = (n_local // 3 if case == "overflow" else int(sm.sum(0).max()) + 3)
+    shifts = [int(x) for x in rng.integers(0, 4, size=S)]
+    mem = [[rng.integers(0, 2**32, size=n_local + 8, dtype=np.uint32) for _ in range(k)]
+           for _ in range(S)]
+    out, writes, arrived = _kernel_model(mem, shifts, offs, sm, cap, chunk=64)
+    for w in writes:
+        assert (w == 1).all()
+    planes = [[torch.from_numpy(m[sh:sh + n_local].copy()) for m in ms]
+              for ms, sh in zip(mem, shifts)]
+    before = rd.EXCHANGE.plain_calls
+    want, demand, want_arr = rd.remote_dma_exchange(
+        planes, [torch.from_numpy(o) for o in offs], [torch.from_numpy(z) for z in sm], cap)
+    assert rd.EXCHANGE.plain_calls - before == S * k
+    assert want[0].shape == (R * cap,) and want_arr.shape == (k, R)
+    for g, w in zip(out, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    np.testing.assert_array_equal(arrived, want_arr.numpy())
+    np.testing.assert_array_equal(demand.numpy(), sm.sum(0))
+    np.testing.assert_array_equal(arrived[0], np.minimum(sm.sum(0), cap))
+    if case == "overflow":
+        assert demand.max() > cap
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 4), (4, 8), (2, 3), (0, 8)])
+def test_rectangular_is_a_block_of_the_square_exchange(rng, lo, hi):
+    """The exchange to receivers [lo, hi) of D senders equals those
+    receivers' part of the square exchange, pads and arrivals included; a
+    sender whose segments for them are packed (as the transport delivers a
+    remote sender's) gives the same buffers."""
+    D, n_local, cap = 8, 512, 300
+    sm = _size_matrix(rng, D, n_local, "overflow")
+    offs = _offsets(rng, sm, n_local)
+    planes = [[torch.from_numpy(rng.integers(0, 2**32, n_local, dtype=np.uint32))]
+              for _ in range(D)]
+    full, fdemand, farr = rd.remote_dma_exchange(
+        planes, [torch.from_numpy(o) for o in offs], [torch.from_numpy(z) for z in sm], cap)
+    block = sm[:, lo:hi]
+    got, demand, arr = rd.remote_dma_exchange(
+        planes, [torch.from_numpy(o[lo:hi].copy()) for o in offs],
+        [torch.from_numpy(z.copy()) for z in block], cap)
+    np.testing.assert_array_equal(got[0].numpy(), full[0].numpy()[lo * cap:hi * cap])
+    np.testing.assert_array_equal(demand.numpy(), fdemand.numpy()[lo:hi])
+    np.testing.assert_array_equal(arr.numpy(), farr.numpy()[:, lo:hi])
+    # every sender packed: its segments for [lo, hi) back to back
+    packed = [[torch.cat([p[0][o:o + z] for o, z in zip(offs[s, lo:hi], block[s])])]
+              for s, p in enumerate(planes)]
+    poffs = [torch.from_numpy(np.cumsum(z) - z) for z in block]
+    again, _, _ = rd.remote_dma_exchange(
+        packed, poffs, [torch.from_numpy(z.copy()) for z in block], cap)
+    np.testing.assert_array_equal(again[0].numpy(), got[0].numpy())
+
+
+def test_pointer_table_rectangular():
+    """S senders, R receivers: sender s's plane j at j * S + s, then
+    receiver d's buffer of plane j at k * S + j * R + d."""
+    S, R, k, cap = 5, 3, 2, 11
+    planes = [[torch.zeros(20, dtype=torch.int32).view(torch.uint32) for _ in range(k)]
+              for _ in range(S)]
+    recv = [torch.empty(R * cap, dtype=torch.uint32) for _ in range(k)]
+    tab = rd._pointer_table(planes, recv, cap)
+    assert len(tab) == k * (S + R)
+    for j in range(k):
+        for s in range(S):
+            assert tab[j * S + s] == planes[s][j].data_ptr()
+        for d in range(R):
+            assert tab[k * S + j * R + d] == recv[j][d * cap:].data_ptr()
