@@ -84,10 +84,18 @@ Phases, each printing its own lines:
          with 8 senders and 4 receivers (its launches, the transport's
          bytes, the size matrix's host reads and a split of the call into
          size read, transport, B6 and sorts); each bit-equal to torch.sort
-         and to the one-process ``make_mesh(8)``; each rank then holds B6
-         at every (senders, receivers, planes, capacity) shape its counted
-         calls launched, and B2-B5 at every shape they launched, against
-         their plain versions; and two NCCL ranks on the one card, tried
+         and to the one-process ``make_mesh(8)``; then the four table
+         operators at the table phase's TPC-H shape (LINEITEM 2^26, ORDERS
+         2^24, each rank passing its own rows): Q1's filter, Q18's
+         aggregate (hash and range), the lineitem-orders hash join and
+         ORDER BY on orders, each rank's rows and counts bit-equal to its
+         shards' share of the one-process ``make_mesh(8)`` result and its
+         count to the torch oracle's, with first and warm times, rows per
+         second, peak device memory, launches, the transport and, over two
+         ranks, a synchronized split; each rank then holds B6 at every
+         (senders, receivers, planes, capacity) shape its counted calls
+         launched, and B2-B5 at every shape they launched, against their
+         plain versions; and two NCCL ranks on the one card, tried
          once, printing what NCCL answers inside its first collective (a
          finding, not a check; any failure before it fails the phase);
        - every ``examples/torch_*.py`` with ``--device cuda``, all started
@@ -1263,10 +1271,11 @@ NCCL_PROBE = "probing: an all_reduce over two NCCL ranks on one card"
 
 
 def multiprocess_phase(launches):
-    """The shuffle over processes, in fresh child processes on the one card
-    (``chip_smoke.py --dist MODE RANK``, :func:`dist_child`): (i) one NCCL
-    rank, (ii) two gloo ranks with 4 shards each, whose exchanges cross
-    processes through B6's rectangular launch, (iii) two NCCL ranks on the
+    """The shuffle and the table operators over processes, in fresh child
+    processes on the one card (``chip_smoke.py --dist MODE RANK``,
+    :func:`dist_child`): (i) one NCCL rank, (ii) two gloo ranks with 4
+    shards each, whose exchanges cross processes through B6's rectangular
+    launch, (iii) two NCCL ranks on the
     one card, tried once.  What NCCL answers in (iii), inside its first
     collective (an error, a hang or a crash there), is printed as a finding;
     any other failure fails the phase.  Each child's last line is its
@@ -1322,12 +1331,14 @@ def multiprocess_phase(launches):
 def dist_child(mode, rank, init) -> int:
     """One rank of :func:`multiprocess_phase`.  Inputs are made on the card
     from a seed, the same on every rank, and the one-process
-    ``make_mesh(8)`` result is computed before the process group starts;
-    each rank then passes its own rows.  Every variant's output is held
-    bit-equal to that result (planes and counts on the flat mesh, the
-    valid rows elsewhere) and to torch.sort.  The counted call of each
-    variant records the shapes of its B2-B6 launches; afterwards each
-    shape is held against its plain version on this rank."""
+    ``make_mesh(8)`` results (the sort's, and this rank's share of the
+    table paths', :func:`dist_table_refs`) are computed before the process
+    group starts; each rank then passes its own rows.  Every sort variant's
+    output is held bit-equal to that result (planes and counts on the flat
+    mesh, the valid rows elsewhere) and to torch.sort, then the table
+    paths run (:func:`dist_table_paths`).  The counted call of each
+    variant and path records the shapes of its B2-B6 launches; afterwards
+    each shape is held against its plain version on this rank."""
     import datetime
 
     import torch
@@ -1373,6 +1384,7 @@ def dist_child(mode, rank, init) -> int:
 
     if not same(dense(one_planes, one_counts, 0, 8, cap), want):  # all 8 shards
         raise AssertionError("the one-process make_mesh(8) result differs from torch.sort")
+    tables = dist_table_refs(torch, par, dev, world, rank) if mode != "nccl2" else None
 
     par.init_distributed(backend=backend, device="cuda", init_method=init, rank=rank,
                          world_size=world, timeout=datetime.timedelta(seconds=60))
@@ -1478,6 +1490,10 @@ def dist_child(mode, rank, init) -> int:
                                       if split else ""))
     del hi, lo, pay, want, one_planes, one_counts
     torch.cuda.empty_cache()
+    dist_table_paths(torch, par, M, sh, rd, fs, fm, dev, world, rank, tables, launches,
+                     seen, b6, shapes)
+    del tables
+    torch.cuda.empty_cache()
 
     # every B6 shape of the counted calls, then every B2-B5 shape
     for key in sorted(b6_cases):
@@ -1502,6 +1518,191 @@ def dist_child(mode, rank, init) -> int:
     return 0
 
 
+def _table_calls(par, li, od, mask, mesh):
+    """The table paths of the multi-process phase, as the table phase runs
+    them: name -> (rows, call, kind, the oracle count its count must sum
+    to).  ``kind`` "static": the whole static-length output, L * capacity
+    rows a rank; "dense": densified rows."""
+    aggs = {"sum_qty": ("quantity", "sum"), "n": ("quantity", "count"),
+            "avg_qty": ("quantity", "mean"), "max_price": ("extendedprice", "max")}
+    n_l, n_o = li.n_rows, od.n_rows
+    return {
+        "distributed_filter lineitem, Q1's shipdate cut": (
+            n_l, lambda: par.distributed_filter(li, mask, mesh=mesh), "static", "kept"),
+        "distributed_group_aggregate lineitem by orderkey (Q18), hash": (
+            n_l, lambda: par.distributed_group_aggregate(
+                li, "orderkey", aggs, mesh=mesh, partition="hash"), "dense", "groups"),
+        "distributed_group_aggregate lineitem by orderkey (Q18), range": (
+            n_l, lambda: par.distributed_group_aggregate(
+                li, "orderkey", aggs, mesh=mesh, partition="range"), "dense", "groups"),
+        "distributed_join lineitem x orders on orderkey, inner, hash": (
+            n_l + n_o, lambda: par.distributed_join(li, od, "orderkey", mesh=mesh,
+                                                    partition="hash"), "dense", "matches"),
+        "distributed_sort_table orders by totalprice, stable": (
+            n_o, lambda: par.distributed_sort_table(od, "totalprice", mesh=mesh,
+                                                    stable=True), "static", "sorted"),
+    }
+
+
+def dist_table_refs(torch, par, dev, world, rank, n_lineitem=1 << 26, n_orders=1 << 24):
+    """Before ``init_distributed``: TPC-H lineitem 2^26 and orders 2^24
+    (``tpch_tables`` from a seed, the same on every rank), each table path's
+    one-process ``make_mesh(8)`` result cut to this rank's shards' share
+    (its L * capacity rows of a static output; of a densified one, the rows
+    its shards produced, found from the per-shard counts that ``_dense``
+    was given), and the torch oracles' counts.  The rows and shares are
+    held on the host until the table paths run, so the sort variants before
+    them have the card as they had it without them.  Returns (this rank's
+    rows of lineitem, orders and Q1's mask, {path: (share, count)}, oracle
+    counts)."""
+    from rdst_tpu_torch.parallel import dtable
+    from rdst_tpu_torch.table import Table
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    lineitem, orders, cutoff, _ = tpch_tables(torch, dev, gen, n_lineitem, n_orders)
+    mask = lineitem["shipdate"] <= cutoff
+    L = 8 // world
+    first = rank * L
+    oracle = {"kept": int(mask.sum()),
+              "groups": torch.unique(lineitem["orderkey"]).numel(),
+              "matches": lineitem["orderkey"].numel(),
+              "sorted": orders["orderkey"].numel()}
+    calls = _table_calls(par, Table(lineitem), Table(orders), mask,
+                         par.make_mesh(8, device=dev))
+    given = []
+    real = dtable._dense
+
+    def rec(per_shard, counts):
+        given.append(list(counts))
+        return real(per_shard, counts)
+
+    refs = {}
+    dtable._dense = rec
+    try:
+        for name, (_, call, kind, _) in calls.items():
+            table, count = call()
+            if kind == "static":
+                cap = table.n_rows // 8
+                lo, hi = first * cap, (first + L) * cap
+            else:
+                c = given.pop()
+                lo, hi = sum(c[:first]), sum(c[:first + L])
+            refs[name] = ({k: table[k][lo:hi].cpu() for k in table.column_names},
+                          count.cpu() if isinstance(count, torch.Tensor) else count)
+            del table, count
+    finally:
+        dtable._dense = real
+    del calls
+
+    def mine(t):
+        k = next(iter(t.values())).numel() // world
+        return {c: v[rank * k:(rank + 1) * k].cpu() for c, v in t.items()}
+
+    li, od = mine(lineitem), mine(orders)
+    m = mine({"m": mask})["m"]
+    del lineitem, orders, mask
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return li, od, m, refs, oracle
+
+
+def dist_table_paths(torch, par, M, sh, rd, fs, fm, dev, world, rank, tables,
+                     launches, seen, b6, shapes):
+    """After the sort variants: the four table operators on ``make_mesh(8)``
+    over this process group, each rank passing its own rows.  Each path's
+    counted call records its B2-B5 shapes (``record_shapes``) and B6's
+    (``b6``); its rows and counts must be bit-equal to this rank's share of
+    the one-process result and its count to the torch oracle's.  Then
+    ``WARM_CALLS`` timed calls (the median is the warm time) with their
+    peak device memory and, over several ranks, a synchronized split."""
+    from rdst_tpu_torch import _build
+    from rdst_tpu_torch.table import Table
+
+    li, od, mask, refs, oracle = tables
+    li, od = ({c: v.to(dev) for c, v in t.items()} for t in (li, od))
+    mask = mask.to(dev)
+    mesh = par.make_mesh(8, device=dev)
+    calls = _table_calls(par, Table(li), Table(od), mask, mesh)
+    for name, (rows, call, kind, key) in calls.items():
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        for k in M.TRANSPORT:
+            M.TRANSPORT[k] = 0
+        shapes.clear()
+        if world > 1:
+            torch.distributed.barrier()
+        torch.cuda.synchronize()
+        real_b6 = rd.remote_dma_exchange_cuda
+        rd.remote_dma_exchange_cuda = b6
+        try:
+            with record_shapes(fs, fm, seen):
+                t0 = time.perf_counter()
+                table, count = call()
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+        finally:
+            rd.remote_dma_exchange_cuda = real_b6
+        counted = {k: _build.KERNELS[k].launches for k in KERNEL_INFO}
+        for k, v in counted.items():
+            launches[k] += v
+        moved = dict(M.TRANSPORT)
+        host, want_count = refs.pop(name)
+        want = {c: w.to(dev) for c, w in host.items()}
+        if table.column_names != list(want) or any(  # bit for bit
+                not torch.equal(table[c].view(torch.uint8), w.view(torch.uint8))
+                for c, w in want.items()):
+            raise AssertionError(f"{name} (rank {rank}): rows differ from this rank's "
+                                 "share of the one-process make_mesh(8) result")
+        if isinstance(count, torch.Tensor):
+            want_count = want_count.to(dev)
+            ok = count.dtype == want_count.dtype and torch.equal(count, want_count)
+            total = int(count.sum())
+        else:
+            ok = count == want_count
+            total = count
+        if not ok or total != oracle[key]:
+            raise AssertionError(f"{name} (rank {rank}): count {total} differs from the "
+                                 f"one-process result's or the oracle's {oracle[key]}")
+        if key != "kept":  # every path but the filter exchanges
+            if counted["remote_exchange"] <= 0:
+                raise AssertionError(f"{name} exchanged without B6")
+            if world > 1 and not any(s != r for s, r, _, _ in shapes):
+                raise AssertionError(f"{name}: B6 never launched in its rectangular form")
+        del table, count, host, want
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(WARM_CALLS):
+            if world > 1:
+                torch.distributed.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = call()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del again
+        peak = torch.cuda.max_memory_allocated()
+        warm = statistics.median(times)
+        if world > 1:
+            torch.distributed.barrier()
+        split = _timed_split(torch, sh, M, rd, call) if world > 1 else {}
+        print(f"path table: {name} (rank {rank}): first {first_s * 1e3:.3f} ms, warm "
+              f"{warm * 1e3:.3f} ms (median of {WARM_CALLS}; {min(times) * 1e3:.3f}-"
+              f"{max(times) * 1e3:.3f}), {rows * world / warm:,.0f} rows/s over {world} "
+              f"rank(s) ({rows} rows a rank); "
+              f"peak device memory {peak} B ({peak / GiB:.2f} GiB), of which {base} B "
+              f"({base / GiB:.2f} GiB) held before the calls; bit-exact vs this rank's "
+              f"share of the one-process make_mesh(8), count {total} as the oracle's; "
+              f"launches B2 {counted['bitonic_tail']}, B3 {counted['bitonic_span']}, "
+              f"B4 {counted['merge_stage']}, B5 {counted['merge_tail']}, B6 "
+              f"{counted['remote_exchange']}; B6 shapes (senders, receivers, planes, "
+              f"capacity) {sorted(shapes)}; transport {moved}"
+              + (f"; split (synchronized run, s): {split}" if split else ""))
+    del calls, li, od, mask, refs
+
+
 def _aligned_clone(torch, t):
     """A copy of a u32 plane at the same word offset mod 4 (B6's copies
     take another path at each residue)."""
@@ -1520,12 +1721,20 @@ def _timed_split(torch, sh, M, rd, call):
     exchanges within a process (the 2-axis mesh's stage 2), the rest of
     each cross-process exchange (packing, the offset table), the sorts,
     split at the first exchange (the local sorts before it, the routing
-    and finish sorts after), and the rest of the call (under gloo, every
-    other collective's round trip through the CPU among it)."""
+    and finish sorts after), a table operator's body (``dtable._agg_local``,
+    ``_agg_combine`` with its gather, ``_join_local``) and densify
+    (``_dense``), and the rest of the call (under gloo, every other
+    collective's round trip through the CPU among it).  "size read" holds
+    every ``Mesh.read_gathered``: the size matrices and the operators'
+    gathered counts."""
+    from rdst_tpu_torch.parallel import dtable as dt
+
     acc = collections.Counter()
     state = {"exchanged": False, "across": False}
     saved = (M.Mesh.all_to_all, rd.remote_dma_exchange_cuda, sh._exchange_across,
              sh._local_sort, M.Mesh.read_gathered)
+    body = {k: getattr(dt, k) for k in ("_agg_local", "_agg_combine", "_join_local",
+                                         "_dense")}
 
     def timed(key, fn):
         def wrap(*a, **k):
@@ -1551,6 +1760,8 @@ def _timed_split(torch, sh, M, rd, call):
     sh._local_sort = timed(lambda: "sorts after" if state["exchanged"] else "sorts before",
                            saved[3])
     M.Mesh.read_gathered = timed("size read", saved[4])
+    for k, fn in body.items():
+        setattr(dt, k, timed("densify" if k == "_dense" else "body", fn))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1560,6 +1771,8 @@ def _timed_split(torch, sh, M, rd, call):
     finally:
         M.Mesh.all_to_all, rd.remote_dma_exchange_cuda, sh._exchange_across, \
             sh._local_sort, M.Mesh.read_gathered = saved
+        for k, fn in body.items():
+            setattr(dt, k, fn)
     acc["exchange rest"] = (acc["exchange"] - acc["transport"] - acc["B6"]
                             - acc["size read"])
     del acc["exchange"]

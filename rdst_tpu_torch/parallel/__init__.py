@@ -20,10 +20,14 @@ version.  One process per card (or per CPU rank), under ``torchrun
 
 Each process passes its own rows (its shards' share) and gets its shards'
 planes with the global counts; ``gather_valid(..., mesh=mesh)`` returns the
-whole order on every rank.  ``init_distributed(device="cpu",
-init_method="file:///tmp/rdv", rank=r, world_size=n)`` starts gloo without
-torchrun.  The table operators (``dtable``) raise ``NotImplementedError``
-on a mesh that spans processes.
+whole order on every rank.  The table operators take the same convention:
+each rank passes its own rows of every table and gets back its shards'
+output (the static-length outputs of ``distributed_sort_table`` and
+``distributed_filter`` with the global (D,) counts; the densified group or
+join rows of its shards with the global group or match count), so the
+ranks' outputs, concatenated rank by rank, are the one-process result.
+``init_distributed(device="cpu", init_method="file:///tmp/rdv", rank=r,
+world_size=n)`` starts gloo without torchrun.
 """
 from rdst_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh, make_mesh_2d
 from rdst_tpu_torch.parallel.shuffle import (

@@ -15,15 +15,21 @@ the operators compose:
   * ``distributed_join``            - co-partition both sides by the same
     partition, then a local sort-merge join on every shard.
 
-The JAX package runs each body inside ``shard_map``.  Here the shards of a
-:class:`~rdst_tpu_torch.parallel.mesh.Mesh` live in this process (a mesh
-that spans processes raises ``NotImplementedError``: not ported yet) and each
-body runs in lockstep over lists of per-shard tensors, with the mesh's
-collectives in place of ``all_gather`` / ``psum`` and the shard index in
-place of ``axis_index``, as ``parallel/shuffle.py`` does.  Every operator
-runs on ``mesh.device``; a table elsewhere is copied there first.  The
-aggregate and the join densify their outputs on that device: each shard's
-valid prefix, concatenated, after one host read of the per-shard counts.
+The JAX package runs each body inside ``shard_map``.  Here each process
+runs it in lockstep over the shards of a
+:class:`~rdst_tpu_torch.parallel.mesh.Mesh` that it holds (all of them, or
+one block after ``init_distributed``), with the mesh's collectives in place
+of ``all_gather`` / ``psum`` and the flat shard index (``mesh.shards``) in
+place of ``axis_index``, as ``parallel/shuffle.py`` does.  On a mesh over
+processes each process passes its own rows (``L * n_local``, its L shards'
+share) and gets back its shards' output with the global counts; the
+outputs of the ranks, concatenated rank by rank, are the one-process
+result.  Every rank issues the same collectives in the same order, and
+every ``OverflowError`` is decided on global counts, so all ranks raise
+it or none does.  Every operator runs on ``mesh.device``; a table
+elsewhere is copied there first.  The aggregate and the join densify their
+outputs on that device: each of this process's shards' valid prefix,
+concatenated, after one host read of the gathered per-shard counts.
 """
 from __future__ import annotations
 
@@ -77,15 +83,6 @@ def _hash_plane(words) -> torch.Tensor:
     return P.narrow(h, torch.uint32)
 
 
-def _one_process(mesh: Mesh, op: str) -> None:
-    """The operators hold whole tables in one process; over processes they
-    would run on part of one, so they refuse."""
-    if mesh.processes:
-        raise NotImplementedError(
-            f"{op} over a mesh that spans processes is not ported yet "
-            "(ROADMAP.md, queue A: the dtable operators over processes)")
-
-
 def _on_mesh(table: Table, mesh: Mesh) -> Table:
     if table.device == mesh.device:
         return table
@@ -121,10 +118,11 @@ def _decode_columns(enc, planes, names=None) -> dict:
     return cols
 
 
-def _per_shard(planes, D: int):
-    """(D * c,) planes -> per shard, the list of its (c,) views."""
-    c = int(planes[0].shape[0]) // D
-    return [[p[s * c:(s + 1) * c] for p in planes] for s in range(D)]
+def _per_shard(planes, L: int):
+    """(L * c,) planes of this process's L shards -> per shard, the list of
+    its (c,) views."""
+    c = int(planes[0].shape[0]) // L
+    return [[p[i * c:(i + 1) * c] for p in planes] for i in range(L)]
 
 
 def _dense(per_shard, counts) -> list[torch.Tensor]:
@@ -148,8 +146,9 @@ def distributed_sort_table(
     overlap_exchange: bool = False,
 ):
     """Global ORDER BY over the mesh.  Returns (Table of D * capacity rows
-    in device-major order, (D,) per-shard valid counts)."""
-    _one_process(mesh, "distributed_sort_table")
+    in device-major order, (D,) per-shard valid counts).  On a mesh over
+    processes each rank passes its own rows and gets its shards' L *
+    capacity rows with the global (D,) counts."""
     table = _on_mesh(table, mesh)
     by, nk, _, enc, payload_words = _encode_table(table, by)
     words, payloads, counts = distributed_sort(
@@ -165,24 +164,25 @@ def distributed_sort_table(
 def distributed_filter(table: Table, mask, *, mesh: Mesh, axis: str = "shard"):
     """A local filter on every shard (no exchange): each shard's kept rows
     packed left in stable order, its other rows after them, with (D,) int32
-    per-shard counts."""
-    _one_process(mesh, "distributed_filter")
+    per-shard counts.  On a mesh over processes the table and the mask are
+    this rank's rows; the counts are global (one ``all_gather``)."""
     _check_axis(mesh, axis)
     table = _on_mesh(table, mesh)
-    D = mesh.size
+    L = mesh.n_local
     n = table.n_rows
-    if n % D:
-        raise ValueError(f"global length {n} not divisible by mesh size {D}")
+    if n % L:
+        raise ValueError(f"length {n} not divisible by the {L} shards of this process")
     mask = _keys._to_tensor(mask, mesh.device).to(mesh.device)
     if mask.dtype != torch.bool:
         mask = mask != 0
-    # every shard's stable 1-bit sort at once: rows of the (D, n / D) view
-    keep = mask.view(D, n // D)
+    # every shard's stable 1-bit sort at once: rows of the (L, n / L) view
+    keep = mask.view(L, n // L)
     idx = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
-    idx += torch.arange(0, n, n // D, device=mesh.device)[:, None]
+    idx += torch.arange(0, n, n // L, device=mesh.device)[:, None]
     idx = idx.view(-1)
     cols = {c: tops._take(table.column(c), idx) for c in table.column_names}
-    return Table(cols), keep.sum(1, dtype=torch.int32)
+    counts = mesh.all_gather(list(keep.sum(1)))  # int64: what collectives carry
+    return Table(cols), counts.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -287,27 +287,53 @@ def _agg_local(plan: _AggPlan, kw, vals, norm_words, cnt):
     )
 
 
+_INT_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _bits64(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding ``x``'s bits: each value's signed view of its own
+    width, widened (sign-extended), so :func:`_from_bits64` restores it."""
+    return x.view(_INT_OF_WIDTH[x.element_size()]).to(torch.int64)
+
+
+def _from_bits64(v: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    return v.to(_INT_OF_WIDTH[dt.itemsize]).view(dt)
+
+
+def _boundary_rows(mesh: Mesh, local: list):
+    """Every shard's boundary state, gathered in one ``all_gather``: each
+    shard packs ``has``, its first and last key words, its first group's
+    size and each first-group partial (bit for bit) into one int64 row.
+    Returns (has (D,) bool, first keys (D, nk), last keys (D, nk), first
+    sizes (D,) int32, {partial: (D,) of its signed view's dtype})."""
+    nk = local[0]["first_key"].shape[0]
+    names = list(local[0]["packed"])
+    dts = [P.sview(local[0]["packed"][k]).dtype for k in names]
+    rows = [torch.cat([x["has"].to(torch.int64).view(1), x["first_key"], x["last_key"],
+                       x["sizes"][:1].to(torch.int64)]
+                      + [_bits64(P.sview(x["packed"][k][:1])) for k in names])
+            for x in local]
+    g = mesh.all_gather(rows)  # (D, 2 nk + 2 + partials)
+    partials = {k: _from_bits64(g[:, 2 * nk + 2 + j], dt)
+                for j, (k, dt) in enumerate(zip(names, dts))}
+    return (g[:, 0] != 0, g[:, 1:1 + nk], g[:, 1 + nk:1 + 2 * nk],
+            g[:, 1 + 2 * nk].to(torch.int32), partials)
+
+
 def _agg_combine(mesh: Mesh, plan: _AggPlan, local: list):
     """The boundary combine of dtable.py ``_agg_body``, in lockstep: a group
-    that straddles shards (the shuffle rank-split its key) belongs to the
-    first shard holding its rows, which adds the first-group partials of
-    every later shard whose first key equals its last key; those shards drop
-    their first group.  Returns per shard (output planes: key words, then
-    one per aggregate; its group count)."""
+    that straddles shards (the shuffle rank-split its key, across a process
+    boundary too) belongs to the first shard holding its rows, which adds
+    the first-group partials of every later shard whose first key equals
+    its last key; those shards drop their first group.  ``local[i]`` is
+    shard ``mesh.shards[i]``'s state.  Returns per local shard (output
+    planes: key words, then one per aggregate; its group count)."""
     D = mesh.size
     dev = mesh.device
-    g_has = mesh.all_gather([x["has"] for x in local])  # (D,)
-    g_first = mesh.all_gather([x["first_key"] for x in local])  # (D, nk)
-    g_last = mesh.all_gather([x["last_key"] for x in local])
-    # first-group partials, gathered through the signed view of each dtype
-    first_partials = {
-        k: mesh.all_gather([P.sview(x["packed"][k][:1]) for x in local])[:, 0]
-        for k in local[0]["packed"]
-    }
-    first_sizes = mesh.all_gather([x["sizes"][0] for x in local])
+    g_has, g_first, g_last, first_sizes, first_partials = _boundary_rows(mesh, local)
     d_iota = torch.arange(D, device=dev)
     outs, counts = [], []
-    for me, x in enumerate(local):
+    for me, x in zip(mesh.shards, local):
         n = x["gstart"].shape[0]
         has = x["has"]
         suppressed = has & ((d_iota < me) & g_has
@@ -384,19 +410,19 @@ def distributed_group_aggregate(
     boundary (possible when the shuffle rank-splits one key) are combined
     from gathered first-group partials (:func:`_agg_combine`).  Returns
     (Table of group rows, densified on the mesh's device; a 0-dim int32
-    tensor of the group count).
+    tensor of the group count).  On a mesh over processes each rank gets
+    its own shards' group rows and the global group count.
 
     ``partition="hash"`` shuffles by a leading 32-bit key hash instead of
     the key range: distinct group keys spread uniformly whatever their range
     clustering, and the group rows arrive in hash order, not key order."""
-    _one_process(mesh, "distributed_group_aggregate")
     by_list = [by] if isinstance(by, str) else list(by)
     for _, (_, op) in aggs.items():
         if op not in tops._AGG_OPS:
             raise ValueError(f"unsupported agg op {op!r}")
     _check_partition(partition)
     table = _on_mesh(table, mesh)
-    D = mesh.size
+    L = mesh.n_local
     dev = mesh.device
 
     # 1. shuffle rows by group key; value columns ride as payload words.  A
@@ -415,8 +441,8 @@ def distributed_group_aggregate(
         capacity_factor=capacity_factor, stable=True,
         overlap_exchange=overlap_exchange,
     )
-    cap = int(words[0].shape[0]) // D
-    if max(counts.tolist()) > cap:
+    cap = int(words[0].shape[0]) // L
+    if max(counts.tolist()) > cap:  # the global counts: every rank alike
         raise OverflowError("shuffle capacity exceeded; raise capacity_factor")
 
     # 2. decode the value planes and build the plan
@@ -424,7 +450,7 @@ def distributed_group_aggregate(
     val_specs, val_arrays, norm_planes, norm_widths, sentinels = [], [], [], [], []
     for out_name, (col, op) in aggs.items():
         if col is None or op == "count":
-            c = torch.zeros(D * cap, dtype=torch.int32, device=dev)
+            c = torch.zeros(L * cap, dtype=torch.int32, device=dev)
         else:
             c = dec_cols[alias[col]]
         val_specs.append((out_name, op))
@@ -441,24 +467,26 @@ def distributed_group_aggregate(
 
     # 3. every shard's segment reduction, then the boundary combine
     nkw = nk.n_words + (1 if partition == "hash" else 0)
-    shards = _per_shard(list(words) + val_arrays + norm_planes, D)
+    shards = _per_shard(list(words) + val_arrays + norm_planes, L)
     local = [
         _agg_local(plan, p[:nkw], p[nkw:nkw + len(val_arrays)],
                    p[nkw + len(val_arrays):], counts[s])
-        for s, p in enumerate(shards)
+        for s, p in zip(mesh.shards, shards)
     ]
     del shards
     outs, gcounts = _agg_combine(mesh, plan, local)
     del local
 
-    # 4. densify on the device: one host read of the group counts
-    gc = torch.stack(gcounts).tolist()
-    dense = _dense(outs, gc)
+    # 4. densify on the device: one all_gather and one host read of the
+    # group counts, every shard's (the total) then this process's
+    gc = mesh.read_gathered(gcounts, gcounts).tolist()
+    dense = _dense(outs, gc[mesh.size:])
     shift = nkw - nk.n_words  # the hash word is not a key column
     cols = _key_columns(by_list, nk, dense[shift:nkw])
     for (out_name, _), plane in zip(plan.val_specs, dense[nkw:]):
         cols[out_name] = plane
-    return Table(cols), torch.tensor(sum(gc), dtype=torch.int32, device=dev)
+    total = torch.tensor(sum(gc[:mesh.size]), dtype=torch.int32, device=dev)
+    return Table(cols), total
 
 
 # ---------------------------------------------------------------------------
@@ -525,7 +553,9 @@ def distributed_join(
     equal keys must not straddle shards), the right table routes through
     ``partition_exchange`` with it, and every shard joins its resident
     slices (:func:`_join_local`).  Returns (Table densified on the mesh's
-    device, the match count as an int).
+    device, the match count as an int).  On a mesh over processes both
+    sides are this rank's rows; each rank gets its own shards' output rows
+    and the global match count.
 
     ``join_capacity_factor`` sizes each shard's inner-join output as a
     multiple of its left capacity; 1.0 covers any unique-right-key (pk-fk)
@@ -539,7 +569,6 @@ def distributed_join(
     cluster in one key range, and each shard's rows arrive in (hash, key)
     order.  Equal keys still meet, and the local merge matches on the
     (hash, key) composite."""
-    _one_process(mesh, "distributed_join")
     if how not in ("inner", "left"):
         raise ValueError("how must be 'inner' or 'left'")
     _check_partition(partition)
@@ -569,34 +598,35 @@ def distributed_join(
         overlap_exchange=overlap_exchange,
     )
 
-    D = mesh.size
-    lcap = int(words[0].shape[0]) // D
-    rcap = int(rwords[0].shape[0]) // D
-    both = torch.cat([counts, rcounts]).tolist()
+    D, L = mesh.size, mesh.n_local
+    lcap = int(words[0].shape[0]) // L
+    rcap = int(rwords[0].shape[0]) // L
+    both = torch.cat([counts, rcounts]).tolist()  # global: every rank alike
     if max(both[:D]) > lcap or max(both[D:]) > rcap:
         raise OverflowError("shuffle capacity exceeded; raise capacity_factor")
     out_cap = max(int(math.ceil(join_capacity_factor * lcap)), 16)
     # the local merge matches on every arriving key plane, the hash too
     nkw = len(shuffle_words)
-    lsh = _per_shard(list(words) + list(payloads), D)
-    rsh = _per_shard(list(rwords) + list(rpayloads), D)
-    outs, jcounts, matches = [], [], []
-    for s, (ls, rs) in enumerate(zip(lsh, rsh)):
+    lsh = _per_shard(list(words) + list(payloads), L)
+    rsh = _per_shard(list(rwords) + list(rpayloads), L)
+    outs, sizes = [], []
+    for s, ls, rs in zip(mesh.shards, lsh, rsh):
         o, jc, mt = _join_local(ls[:nkw], ls[nkw:], counts[s],
                                 rs[:nkw], rs[nkw:], rcounts[s], out_cap, how)
         outs.append(o)
-        jcounts.append(jc)
-        matches.append(mt)
+        sizes.append(torch.stack([jc, mt]).to(torch.int64))
     del lsh, rsh, words, payloads, rwords, rpayloads
-    both = torch.stack([c.to(torch.int64) for c in jcounts + matches]).tolist()
-    jc, n_matched = both[:D], sum(both[D:])
-    if how == "inner" and max(jc) > out_cap:
+    # every shard's (output rows, matches): one all_gather, one host read,
+    # so every rank raises the same OverflowError or none does
+    got = mesh.read_gathered(sizes, sizes)
+    jc, n_matched = got[:D, 0], int(got[:D, 1].sum())
+    if how == "inner" and jc.max() > out_cap:
         raise OverflowError(
-            f"join output overflow: a device produced {max(jc)} rows > "
+            f"join output overflow: a device produced {jc.max()} rows > "
             f"capacity {out_cap}; raise join_capacity_factor"
         )
 
-    planes = _dense(outs, jc)
+    planes = _dense(outs, got[D:, 0].tolist())
     del outs
     cols = _key_columns(on_list, nk, planes[nkw - nk.n_words:nkw])
     i = nkw + len(payload_words)

@@ -29,7 +29,6 @@ import torch
 from rdst_tpu_torch import config
 from rdst_tpu_torch import parallel as tp
 from rdst_tpu_torch.parallel import mesh as tmesh
-from rdst_tpu_torch.table import Table
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_LOCAL = 1 << 12  # rows a shard
@@ -171,21 +170,6 @@ def _rank_checks(world, rank, init):
         out["indivisible_raises"] = False
     except ValueError:
         out["indivisible_raises"] = True
-    tab = Table({"k": np.arange(64, dtype=np.uint32),
-                           "v": np.ones(64, np.int32)}, device="cpu")
-    calls = {
-        "sort_table": lambda: tp.distributed_sort_table(tab, "k", mesh=mesh),
-        "filter": lambda: tp.distributed_filter(tab, np.ones(64, bool), mesh=mesh),
-        "group_aggregate": lambda: tp.distributed_group_aggregate(
-            tab, "k", {"s": ("v", "sum")}, mesh=mesh),
-        "join": lambda: tp.distributed_join(tab, tab, "k", mesh=mesh),
-    }
-    for k, fn in calls.items():
-        try:
-            fn()
-            out[f"dtable_{k}_raises"] = False
-        except NotImplementedError as e:
-            out[f"dtable_{k}_raises"] = "ROADMAP" in str(e)
     return out
 
 
@@ -223,11 +207,13 @@ def _child(world, rank, init, outdir):
 # ---------------------------------------------------------------------------
 
 
-def _start(world, tmp):
+def _start(world, tmp, script=__file__):
+    """``world`` ranks of ``script --child``, each given its rank, the
+    rendezvous file in ``tmp`` and ``tmp`` for its outputs."""
     init = "file://" + str(tmp / "rendezvous")
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     return [subprocess.Popen(
-        [sys.executable, str(pathlib.Path(__file__).resolve()), "--child",
+        [sys.executable, str(pathlib.Path(script).resolve()), "--child",
          str(world), str(r), init, str(tmp)],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
@@ -404,15 +390,12 @@ def _checks(runs, world):
 @pytest.mark.parametrize("world", [2, 4])
 @pytest.mark.parametrize("check", [
     "init_twice_noop", "spans", "uint32_raises", "indivisible_raises", "no_jax",
-    "dtable_sort_table_raises", "dtable_filter_raises",
-    "dtable_group_aggregate_raises", "dtable_join_raises",
 ])
 def test_rank_checks(runs, world, check):
     """On every rank: ``init_distributed`` twice is a no-op; ``make_mesh``
     spans the processes (rank r holds shards [r L, (r + 1) L)); a uint32
     value into a collective raises, naming its dtype; a shard count that
-    does not split over the ranks raises; the table operators refuse a mesh
-    over processes, naming ROADMAP's item; no rank imported JAX."""
+    does not split over the ranks raises; no rank imported JAX."""
     for c in _checks(runs, world):
         assert c[check] is True
 

@@ -27,6 +27,7 @@ from rdst_tpu_torch import parallel as tp
 from rdst_tpu_torch.parallel import dtable as td
 from rdst_tpu_torch.parallel import shuffle as sh
 from rdst_tpu_torch.table import Table
+from test_torch_dtable_distributed import _spanning_groups
 
 torch.set_num_threads(1)
 
@@ -192,14 +193,6 @@ def test_distributed_aggregate_wide_values_and_key_as_value(meshes):
             "oks": ("ok", "sum"), "bmax": ("b", "max"), "n": ("x", "count")}
     _same(*_run("distributed_group_aggregate", meshes, [cols], ["a", "b"], aggs),
           fsums=(cols, ["a", "b"], {"fs": "f"}))
-
-
-def _spanning_groups(rng, n):
-    grp = np.full(n, 7, dtype=np.uint32)
-    grp[: n // 8] = rng.integers(0, 5, n // 8).astype(np.uint32)
-    grp[-n // 8:] = rng.integers(900, 905, n // 8).astype(np.uint32)
-    rng.shuffle(grp)
-    return grp
 
 
 @pytest.mark.parametrize("partition", ["range", "hash"])
@@ -433,3 +426,66 @@ def test_dtable_argument_checks(meshes):
         td.distributed_join(t, t, "k", mesh=tm, how="outer")
     with pytest.raises(TypeError, match="same width"):  # 1 word against 2
         td.distributed_join(t, Table({"k": torch.arange(64)}), "k", mesh=tm)
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int8, torch.int16, torch.int32,
+                                   torch.int64, torch.float16, torch.bfloat16,
+                                   torch.float32, torch.float64])
+def test_boundary_bits_round_trip(dtype):
+    """A first-group partial crosses the boundary combine's int64 gather
+    bit for bit: the extremes of each width, -0.0, infinities and NaNs
+    with payload bits."""
+    width = torch.tensor([], dtype=dtype).element_size()
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[width]
+    info = torch.iinfo(ints)
+    x = torch.tensor([0, 1, -1, info.min, info.max, info.min + 1, info.max >> 1],
+                     dtype=ints)
+    if dtype == torch.bool:
+        x = torch.tensor([0, 1], dtype=torch.int8)
+    x = x.view(dtype)
+    packed = td._bits64(x)
+    assert packed.dtype == torch.int64
+    back = td._from_bits64(packed, dtype)
+    assert back.dtype == dtype
+    assert torch.equal(back.view(ints), x.view(ints))
+
+
+def test_operators_send_int64_and_combine_gathers_once(monkeypatch):
+    """Every collective the four operators issue carries int64 (what a mesh
+    over processes requires), and the aggregate's boundary combine gathers
+    once, whatever its number of aggregates."""
+    from rdst_tpu_torch.parallel import mesh as tmesh
+
+    stacked, gathers = [], []
+    real_stack, real_gather = tmesh.Mesh._stack, tmesh.Mesh.all_gather
+    monkeypatch.setattr(tmesh.Mesh, "_stack", lambda self, xs: (
+        stacked.extend(x.dtype for x in xs), real_stack(self, xs))[1])
+    monkeypatch.setattr(tmesh.Mesh, "all_gather", lambda self, xs: (
+        gathers.append(1), real_gather(self, xs))[1])
+    combines = []
+    real_combine = td._agg_combine
+
+    def combine(*a):
+        before = len(gathers)
+        out = real_combine(*a)
+        combines.append(len(gathers) - before)
+        return out
+
+    monkeypatch.setattr(td, "_agg_combine", combine)
+    rng = np.random.default_rng(26)
+    n = 1 << 12
+    mesh = tp.make_mesh(8, device="cpu")
+    cols = {"grp": _spanning_groups(rng, n),
+            "q": rng.integers(0, 1000, n).astype(np.uint32),
+            "v": rng.standard_normal(n).astype(np.float32),
+            "ok": rng.integers(0, 2, n).astype(bool)}
+    t = Table(cols, device="cpu")
+    td.distributed_sort_table(t, "grp", mesh=mesh)
+    td.distributed_filter(t, cols["q"] > 500, mesh=mesh)
+    aggs = dict(_ALL, oks=("ok", "last"), okx=("ok", "sum"))
+    td.distributed_group_aggregate(t, "grp", aggs, mesh=mesh, capacity_factor=2.5)
+    td.distributed_join(t, Table({"grp": np.arange(8, dtype=np.uint32),
+                                  "w": np.arange(8, dtype=np.int16)}, device="cpu"),
+                        "grp", mesh=mesh, capacity_factor=8.0)
+    assert combines == [1]
+    assert stacked and set(stacked) == {torch.int64}
