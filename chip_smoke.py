@@ -98,8 +98,20 @@ Phases, each printing its own lines:
          plain versions; and two NCCL ranks on the one card, tried
          once, printing what NCCL answers inside its first collective (a
          finding, not a check; any failure before it fails the phase);
-       - every ``examples/torch_*.py`` with ``--device cuda``, all started
-         together, each of which must exit 0;
+       - every ``examples/torch_*.py`` with ``--device cuda``, the
+         measurement harnesses and the consumer fixture (``HARNESSES``),
+         each in a fresh child (``chip_smoke.py --harness SCRIPT ARGS``),
+         all started together, each of which must exit 0 and prints its
+         rows: ``scripts/torch_bench_suite.py`` (configs c1-c6 at 10M, each
+         step checked against torch.sort), ``torch_bench_single_algo.py``
+         (the 21 rows at 2^22), ``torch_timings.py`` (2^16..2^22),
+         ``torch_capacity_study.py`` (2^20 keys on 8 shards),
+         ``torch_bench_mesh.py`` (2^20 rows a shard) and
+         ``fixtures/torch_consumer.py``; each child records the shape of
+         every kernel launch its script makes and afterwards holds B1 (each
+         (words, levels) group's shortest and longest length), B2-B5 (every
+         shape) and B6 (every shape, on a copy of its inputs) against their
+         plain versions; their launches count on the paths;
   4. one JSON line of the kernels, then the result line.  Its times are
      those of each kernel's most-launched shape on the shuffle (B2-B5), of
      B6 at the stable run's exchange, and of B1 at 2^25 x 2 words.
@@ -1418,14 +1430,7 @@ def dist_child(mode, rank, init) -> int:
     b6_cases = {}  # B6: (senders, receivers, planes, capacity) -> a copy of its inputs
     shapes = set()  # B6's shapes in the current variant's counted call
     real_b6 = rd.remote_dma_exchange_cuda
-
-    def b6(planes, offs, sizes, capacity):
-        key = (len(planes), int(sizes[0].shape[0]), len(planes[0]), capacity)
-        shapes.add(key)
-        if key not in b6_cases:
-            b6_cases[key] = ([[_aligned_clone(torch, q) for q in ps] for ps in planes],
-                             [o.clone() for o in offs], [z.clone() for z in sizes])
-        return real_b6(planes, offs, sizes, capacity)
+    b6 = keep_b6_inputs(torch, rd, b6_cases, shapes)
 
     for label, mesh, kw in variants:
         if len(mesh.axis_names) == 2:
@@ -1497,21 +1502,9 @@ def dist_child(mode, rank, init) -> int:
 
     # every B6 shape of the counted calls, then every B2-B5 shape
     for key in sorted(b6_cases):
-        _b6_case(torch, rd, b6_cases.pop(key), key, rank)
+        _b6_case(torch, rd, b6_cases.pop(key), key, f"rank {rank}")
     torch.cuda.empty_cache()
-
-    def planes_of(n, dtypes):
-        return [P.narrow(torch.randint(0, P.all_ones(dt) + 1, (n,), generator=gen,
-                                       device=dev, dtype=torch.int64), dt)
-                for dt in dtypes]
-
-    def check(name, label, kernel_fn, plain_fn, **_):
-        err = max_err(kernel_fn(), plain_fn())
-        print(f"{name} [{label}; rank {rank}]: max_abs_err={err}")
-        if err != 0:
-            raise AssertionError(f"{name} [{label}] disagrees with its plain "
-                                 f"version (max_abs_err {err})")
-
+    planes_of, check = child_checks(torch, P, gen, dev, f"rank {rank}")
     check_recorded(fs, fm, seen, planes_of, check, main=False)
     print(json.dumps({"launches": launches}))
     dist.destroy_process_group()
@@ -1781,7 +1774,62 @@ def _timed_split(torch, sh, M, rd, call):
     return {k: round(v, 4) for k, v in sorted(acc.items())}
 
 
-def _b6_case(torch, rd, rec, key, rank):
+def keep_b6_inputs(torch, rd, cases, shapes):
+    """A stand-in for B6's launch (``rd.remote_dma_exchange_cuda``) that
+    adds each launch's (senders, receivers, planes, capacity) to ``shapes``
+    and keeps a copy of the first launch's inputs at each shape in
+    ``cases``, for :func:`_b6_case`."""
+    real = rd.remote_dma_exchange_cuda
+
+    def b6(planes, offs, sizes, capacity):
+        key = (len(planes), int(sizes[0].shape[0]), len(planes[0]), capacity)
+        shapes.add(key)
+        if key not in cases:
+            cases[key] = ([[_aligned_clone(torch, q) for q in ps] for ps in planes],
+                          [o.clone() for o in offs], [z.clone() for z in sizes])
+        return real(planes, offs, sizes, capacity)
+    return b6
+
+
+def child_checks(torch, P, gen, dev, tag):
+    """``planes_of`` and ``check`` for :func:`check_recorded` in a child
+    process: random planes from ``gen``, and a check that prints the error
+    with ``tag`` and raises unless the kernel is bit-equal to its plain
+    version."""
+    def planes_of(n, dtypes):
+        return [P.narrow(torch.randint(0, P.all_ones(dt) + 1, (n,), generator=gen,
+                                       device=dev, dtype=torch.int64), dt)
+                for dt in dtypes]
+
+    def check(name, label, kernel_fn, plain_fn, **_):
+        err = max_err(kernel_fn(), plain_fn())
+        print(f"{name} [{label}; {tag}]: max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"{name} [{label}; {tag}] disagrees with its plain "
+                                 f"version (max_abs_err {err})")
+    return planes_of, check
+
+
+@contextlib.contextmanager
+def record_histograms(H, seen):
+    """While a path runs, count B1's launches by their arguments:
+    ``seen[(words, n_levels, level0)][n]``."""
+    real = H.histogram_cuda
+
+    def fn(words, n_levels, level0=0):
+        book = seen.setdefault((len(words), n_levels, level0), {})
+        n = int(words[0].shape[0])
+        book[n] = book.get(n, 0) + 1
+        return real(words, n_levels, level0)
+
+    H.histogram_cuda = fn
+    try:
+        yield seen
+    finally:
+        H.histogram_cuda = real
+
+
+def _b6_case(torch, rd, rec, key, tag):
     """B6 at one shape a counted call gave it, on a copy of that launch's
     inputs, against its plain version: bit-exact, its time alone on
     buffers made beforehand (CUDA events) beside its bound and the plain
@@ -1804,47 +1852,141 @@ def _b6_case(torch, rd, rec, key, rank):
     moved = 4 * k * (landed + R * cap)
     bound = moved / HBM * 1e3
     print(f"remote_exchange [{S} senders x {R} receivers, {k} planes, capacity {cap}, "
-          f"rank {rank}]: max_abs_err={err} kernel {ms:.4f} ms (the launch alone), "
+          f"{tag}]: max_abs_err={err} kernel {ms:.4f} ms (the launch alone), "
           f"plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({moved} B; bytes), kernel at "
           f"{bound / ms:.1%} of it")
 
 
-def run_examples():
-    """Every ``examples/torch_*.py`` with ``--device cuda``, all started
-    together, each in its own process; each must exit 0."""
+# (script, its arguments on the card, the kernels its run must launch): the
+# measurement harnesses at a depth that keeps the phase short (bench_suite
+# and the consumer at full width); timings calls sort_words, which runs no
+# B1.  harness_phase runs every examples/torch_*.py beside them.
+_SORTS = ("multi_level_histogram", "bitonic_tail", "bitonic_span")
+HARNESSES = [
+    ("scripts/torch_bench_suite.py", [], _SORTS + ("merge_stage", "merge_tail")),
+    ("scripts/torch_bench_single_algo.py", ["--n", str(1 << 22), "--tuners"], _SORTS),
+    ("scripts/torch_timings.py", ["--min-exp", "16", "--max-exp", "22",
+                                  "--out", "build/chip_smoke_timings.csv"],
+     ("bitonic_tail", "bitonic_span")),
+    ("scripts/torch_capacity_study.py", ["--n", str(1 << 20)], ("remote_exchange",)),
+    ("scripts/torch_bench_mesh.py", [], ("remote_exchange",)),
+    ("fixtures/torch_consumer.py", [], ("multi_level_histogram",)),
+]
+
+
+def harness_phase(launches):
+    """Every ``examples/torch_*.py`` with ``--device cuda`` and every
+    harness of ``HARNESSES``, each in a fresh child on the card
+    (:func:`harness_child`), all started together; each must exit 0.  Their
+    output is printed and their launch counts added to ``launches``; each
+    harness must have launched the kernels its entry names."""
     root = os.path.dirname(os.path.abspath(__file__))
-    names = sorted(f for f in os.listdir(os.path.join(root, "examples"))
-                   if f.startswith("torch_") and f.endswith(".py"))
-    if len(names) != 7:
-        raise AssertionError(f"examples: {names}")
+    examples = sorted(f for f in os.listdir(os.path.join(root, "examples"))
+                      if f.startswith("torch_") and f.endswith(".py"))
+    if len(examples) != 7:
+        raise AssertionError(f"examples: {examples}")
+    runs = [(f"examples/{f}", ["--device", "cuda"], ()) for f in examples] + HARNESSES
     env = dict(os.environ, PYTHONPATH=root)
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.join("examples", f),
-                               "--device", "cuda"], cwd=root, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for f in names]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--harness",
+                               script, *args], cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for script, args, _ in runs]
     failed = []
     try:
-        for f, p in zip(names, procs):
-            out, err = p.communicate(timeout=300)
-            last = out.strip().splitlines()[-1] if out.strip() else ""
-            print(f"example {f} --device cuda: exit {p.returncode}; {last}")
-            if p.returncode != 0:
-                failed.append(f"{f}: {err[-2000:]}")
+        for (script, args, need), p in zip(runs, procs):
+            out, err = p.communicate(timeout=900)
+            lines = out.strip().splitlines()
+            for line in lines[:-1]:
+                print(f"harness {script}: {line}")
+            if p.returncode != 0 or not lines:
+                failed.append(f"{script} {' '.join(args)}: exit {p.returncode}\n"
+                              f"{err[-3000:]}")
+                continue
+            counted = json.loads(lines[-1])["launches"]
+            print(f"harness {script} {' '.join(args)}: exit 0; launches {counted}")
+            for name in KERNEL_INFO:
+                launches[name] += counted[name]
+            if any(counted[name] <= 0 for name in need):
+                failed.append(f"{script}: did not launch {need}: {counted}")
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     if failed:
-        raise AssertionError("examples failed:\n" + "\n".join(failed))
-    print(f"examples: {len(names)} exited 0 on the card in "
-          f"{time.perf_counter() - t0:.1f} s (run together)")
+        raise AssertionError("harnesses failed:\n" + "\n".join(failed))
+    print(f"harnesses: {len(examples)} examples and {len(HARNESSES)} harnesses exited 0 "
+          f"on the card in {time.perf_counter() - t0:.1f} s (run together)")
+
+
+def harness_child(argv) -> int:
+    """Run one harness or example (``argv``: its path from the checkout root
+    and its arguments) as ``__main__`` in this fresh process, recording the
+    shape of every kernel launch it makes (B1 by its words, levels and
+    length, B2-B5 by :func:`record_shapes`, B6 with a copy of its inputs).
+    Then hold every recorded shape against its plain version (B1 at each
+    (words, levels) group's shortest and longest length), and print the
+    launch counts of the script's run, read before the checks, as the last
+    line, as JSON.  A check that disagrees raises, so the child exits
+    non-zero."""
+    import runpy
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --harness: CUDA is not available", file=sys.stderr)
+        return 2
+    from rdst_tpu_torch import _build
+    from rdst_tpu_torch import _planes as P
+    from rdst_tpu_torch.ops import fused_merge as fm
+    from rdst_tpu_torch.ops import fused_sort as fs
+    from rdst_tpu_torch.ops import histogram as H
+    from rdst_tpu_torch.parallel import remote_dma as rd
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), argv[0])
+    sys.argv = [script, *argv[1:]]
+    seen, hists, b6_cases = {}, {}, {}
+    real_b6 = rd.remote_dma_exchange_cuda
+    rd.remote_dma_exchange_cuda = keep_b6_inputs(torch, rd, b6_cases, set())
+    try:
+        with record_shapes(fs, fm, seen), record_histograms(H, hists):
+            runpy.run_path(script, run_name="__main__")
+    finally:
+        rd.remote_dma_exchange_cuda = real_b6
+    torch.cuda.synchronize()
+    counted = {name: _build.KERNELS[name].launches for name in KERNEL_INFO}
+
+    tag = os.path.basename(argv[0])
+    n_b6 = len(b6_cases)
+    for key in sorted(b6_cases):
+        _b6_case(torch, rd, b6_cases.pop(key), key, tag)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    planes_of, check = child_checks(torch, P, gen, torch.device("cuda", 0), tag)
+    for (k, n_levels, level0), book in sorted(hists.items()):
+        for n in sorted({min(book), max(book)}):
+            w = planes_of(n, (torch.uint32,) * k)
+            check("multi_level_histogram", f"path shape {n} x {k} words, levels "
+                  f"{level0}..{level0 + n_levels - 1}; {book[n]} launches of this length",
+                  lambda: H.histogram_cuda(w, n_levels, level0),
+                  lambda: H.histogram_plain(w, n_levels, level0))
+            del w
+    check_recorded(fs, fm, seen, planes_of, check, main=False)
+    print(f"{tag}: bit-exact against the plain versions at every recorded shape: "
+          f"multi_level_histogram {sum(len({min(b), max(b)}) for b in hists.values())}, "
+          + "".join(f"{name} {len({sig[:2] for sig in book})}, "
+                    for name, book in seen.items()) + f"remote_exchange {n_b6}")
+    print(json.dumps({"launches": counted}))
+    return 0
 
 
 def main() -> int:
     if sys.argv[1:] == ["--trace"]:
         return trace_child()
+    if sys.argv[1:2] == ["--harness"]:
+        return harness_child(sys.argv[2:])
     if sys.argv[1:2] == ["--dist"]:
         return dist_child(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     import torch
@@ -2270,7 +2412,7 @@ def main() -> int:
     crossover(rt, config, _build, rng, launches)
     trace_phase(launches)
     multiprocess_phase(launches)
-    run_examples()
+    harness_phase(launches)
     print(f"launches on the paths: {launches}")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

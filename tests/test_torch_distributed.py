@@ -436,17 +436,26 @@ def test_gather_valid_without_mesh_unchanged():
 
 
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|rdst_tpu)(\.|\s|$)", re.M)
+# a JAX script of scripts/ (the port's scripts are scripts/torch_*.py)
+_JAX_SCRIPT = re.compile(r"^\s*(import|from)\s+scripts(\.(?!torch_)\w+|\s+import\s+(?!torch_))",
+                         re.M)
 
 
-@pytest.mark.parametrize("where", ["rdst_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("where", [
+    "rdst_tpu_torch", "chip_smoke.py", "scripts/torch_bench_suite.py",
+    "scripts/torch_bench_single_algo.py", "scripts/torch_timings.py",
+    "scripts/torch_capacity_study.py", "scripts/torch_bench_mesh.py",
+    "scripts/torch_suite_steps.py", "fixtures/torch_consumer.py"])
 def test_port_imports_no_jax(where):
-    """No module of the port, and not ``chip_smoke.py``, imports JAX or the
-    JAX package (``rdst_tpu``; ``rdst_tpu_torch`` is the port)."""
+    """No module of the port, not ``chip_smoke.py`` and none of the port's
+    harnesses or its consumer fixture imports JAX, the JAX package
+    (``rdst_tpu``; ``rdst_tpu_torch`` is the port) or a JAX script."""
     path = ROOT / where
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
     assert files
     for f in files:
-        hits = _IMPORT.findall(f.read_text())
+        text = f.read_text()
+        hits = _IMPORT.findall(text) + _JAX_SCRIPT.findall(text)
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
 
 
