@@ -112,6 +112,18 @@ Phases, each printing its own lines:
          (words, levels) group's shortest and longest length), B2-B5 (every
          shape) and B6 (every shape, on a copy of its inputs) against their
          plain versions; their launches count on the paths;
+       - the root entry points, each in a fresh child, one at a time (the
+         2^30 sizes hold tens of GiB): ``torch_bench.py`` (``BENCH_RUNS``:
+         the 2^25 headline, ``--plan lowmem``, ``--sweep``, and
+         ``--sweep-large --try-2e30`` at 2 and 1 planes), every size
+         printing a rate above 0 and its last step bit-equal to
+         ``torch.sort``, except that an out-of-memory line at 2^30 is a
+         finding printed with its peak device memory; then
+         ``torch_graft_entry``'s ``entry()``, held against ``torch.sort``,
+         and ``dryrun_multichip(n)`` for n = 1, 2, 4 and 8, each printing
+         its launches and its shuffle sorts' routes; each child holds every
+         kernel shape it launched against its plain version, as the
+         harness children do;
   4. one JSON line of the kernels, then the result line.  Its times are
      those of each kernel's most-launched shape on the shuffle (B2-B5), of
      B6 at the stable run's exchange, and of B1 at 2^25 x 2 words.
@@ -140,6 +152,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -207,9 +220,10 @@ def max_err(a, b) -> int:
         if x.dtype != y.dtype or x.shape != y.shape:
             raise AssertionError(f"dtype/shape {x.dtype}{tuple(x.shape)} "
                                  f"vs {y.dtype}{tuple(y.shape)}")
-        d = (P.widen(x) if x.dtype != torch.int64 else x) - (
-            P.widen(y) if y.dtype != torch.int64 else y)
-        err = max(err, int(d.abs().max().item()) if d.numel() else 0)
+        x, y = x.reshape(-1), y.reshape(-1)
+        for s in range(0, x.numel(), LEAN_CHUNK):  # int64 temporaries of a chunk
+            d = P.widen(x[s:s + LEAN_CHUNK]) - P.widen(y[s:s + LEAN_CHUNK])
+            err = max(err, int(d.abs().max().item()))
     return err
 
 
@@ -273,12 +287,52 @@ def record_shapes(fs, fm, seen):
             setattr(mod, attr, real)
 
 
+# planes above this many bytes are held against the plain version chunk by
+# chunk (the plain version of 2^30 x 2 planes needs more than the card)
+LEAN_BYTES = 6 * GiB
+LEAN_CHUNK = 1 << 26
+
+
+def _chunk_local(name, n, args, chunk) -> bool:
+    """True when the plain version of a B2/B3 launch, run on each aligned
+    ``chunk`` of the planes alone, computes what it computes on all ``n``:
+    every compare-exchange pair and every direction bit (the index bits
+    above a run's length) lies inside a chunk."""
+    if n % chunk or name not in ("bitonic_tail", "bitonic_span"):
+        return False
+    if name == "bitonic_tail":
+        block, _, levels, unflip = args
+        top = max([block.bit_length() - 1, unflip or 0] + [lg for lg, _ in levels])
+    else:
+        s_hi, _, two_r, block, _ = args
+        top = max(block, 2 * s_hi, two_r).bit_length() - 1
+    return top + 1 <= chunk.bit_length() - 1
+
+
+def _chunked_plain(plain, planes, n, args, chunk):
+    """``plain`` on each aligned ``chunk`` of ``planes`` alone, written into
+    one output of the full length."""
+    import torch
+
+    from rdst_tpu_torch import _planes as P
+
+    out = [torch.empty_like(p) for p in planes]
+    for s in range(0, n, chunk):
+        got = plain([p[s:s + chunk] for p in planes], chunk, *args)
+        for o, g in zip(out, got):
+            P.sview(o[s:s + chunk]).copy_(P.sview(g))
+    return out
+
+
 def check_recorded(fs, fm, seen, planes_of, check, main=True):
     """Each kernel against its plain version at the shapes a path gave it:
     one case per (plane dtypes, length), the widest span trip or stride of
     that shape, on fresh random planes (the networks are oblivious, so
     data does not change their work).  With ``main``, each kernel's
-    most-launched shape gives the kernels line its times."""
+    most-launched shape gives the kernels line its times.  The kernel runs
+    at the recorded shape; above ``LEAN_BYTES`` of planes, where the
+    launch's pairs and directions lie within aligned chunks of
+    ``LEAN_CHUNK``, the plain version runs chunk by chunk."""
     fns = {"bitonic_tail": (fs.tail_cuda, fs.tail_plain),
            "bitonic_span": (fs.span_cuda, fs.span_plain),
            "merge_stage": (fm.merge_stage_cuda, fm.merge_stage_plain),
@@ -299,11 +353,16 @@ def check_recorded(fs, fm, seen, planes_of, check, main=True):
                 list(a) if isinstance(a, tuple) else a for a in sig[2:]]
             planes = planes_of(n, dtypes)
             kern, plain = fns[name]
+            lean = (sum(n * d.itemsize for d in dtypes) > LEAN_BYTES
+                    and _chunk_local(name, n, args, LEAN_CHUNK))
             check(name, f"path shape {n} x {len(dtypes)} planes "
                   f"{'+'.join(str(d).split('.')[-1] for d in dtypes)}, args "
                   f"{args}; {sum(c for _, c in sigs)} launches of this shape "
-                  f"on the path",
-                  lambda: kern(planes, n, *args), lambda: plain(planes, n, *args),
+                  f"on the path" + (f"; plain version on aligned chunks of {LEAN_CHUNK}"
+                                    if lean else ""),
+                  lambda: kern(planes, n, *args),
+                  (lambda: _chunked_plain(plain, planes, n, args, LEAN_CHUNK)) if lean
+                  else (lambda: plain(planes, n, *args)),
                   main_shape=main and shape == top,
                   ops=ce_ops(name, dtypes, n, args))
             del planes
@@ -1922,20 +1981,30 @@ def harness_phase(launches):
 
 def harness_child(argv) -> int:
     """Run one harness or example (``argv``: its path from the checkout root
-    and its arguments) as ``__main__`` in this fresh process, recording the
-    shape of every kernel launch it makes (B1 by its words, levels and
-    length, B2-B5 by :func:`record_shapes`, B6 with a copy of its inputs).
-    Then hold every recorded shape against its plain version (B1 at each
-    (words, levels) group's shortest and longest length), and print the
-    launch counts of the script's run, read before the checks, as the last
-    line, as JSON.  A check that disagrees raises, so the child exits
-    non-zero."""
+    and its arguments) as ``__main__`` in this fresh process under
+    :func:`recorded_child`."""
     import runpy
 
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), argv[0])
+
+    def run():
+        sys.argv = [script, *argv[1:]]
+        runpy.run_path(script, run_name="__main__")
+    return recorded_child(os.path.basename(argv[0]), run)
+
+
+def recorded_child(tag, run) -> int:
+    """Call ``run`` in this fresh process, recording the shape of every
+    kernel launch it makes (B1 by its words, levels and length, B2-B5 by
+    :func:`record_shapes`, B6 with a copy of its inputs).  Then hold every
+    recorded shape against its plain version (B1 at each (words, levels)
+    group's shortest and longest length), and print the launch counts of
+    the run, read before the checks, as the last line, as JSON.  A check
+    that disagrees raises, so the child exits non-zero."""
     import torch
 
     if not torch.cuda.is_available():
-        print("chip_smoke --harness: CUDA is not available", file=sys.stderr)
+        print(f"chip_smoke ({tag}): CUDA is not available", file=sys.stderr)
         return 2
     from rdst_tpu_torch import _build
     from rdst_tpu_torch import _planes as P
@@ -1944,20 +2013,17 @@ def harness_child(argv) -> int:
     from rdst_tpu_torch.ops import histogram as H
     from rdst_tpu_torch.parallel import remote_dma as rd
 
-    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), argv[0])
-    sys.argv = [script, *argv[1:]]
     seen, hists, b6_cases = {}, {}, {}
     real_b6 = rd.remote_dma_exchange_cuda
     rd.remote_dma_exchange_cuda = keep_b6_inputs(torch, rd, b6_cases, set())
     try:
         with record_shapes(fs, fm, seen), record_histograms(H, hists):
-            runpy.run_path(script, run_name="__main__")
+            run()
     finally:
         rd.remote_dma_exchange_cuda = real_b6
     torch.cuda.synchronize()
     counted = {name: _build.KERNELS[name].launches for name in KERNEL_INFO}
 
-    tag = os.path.basename(argv[0])
     n_b6 = len(b6_cases)
     for key in sorted(b6_cases):
         _b6_case(torch, rd, b6_cases.pop(key), key, tag)
@@ -1982,11 +2048,128 @@ def harness_child(argv) -> int:
     return 0
 
 
+def graft_child() -> int:
+    """``torch_graft_entry``'s ``entry()``, its sort held against
+    ``torch.sort``, and ``dryrun_multichip(n)`` for n = 1, 2, 4 and 8 on
+    the card, each printing its kernel launches and which route each
+    shuffle sort took, under :func:`recorded_child`."""
+    def run():
+        import torch
+
+        import torch_graft_entry as ge
+        from rdst_tpu_torch import _build
+        from rdst_tpu_torch.parallel import shuffle
+
+        fn, (hi, lo) = ge.entry()
+        shi, slo = fn(hi, lo)
+        packed = (hi.view(torch.int32).to(torch.int64) << 32) | (
+            lo.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+        want = torch.sort(packed ^ (-1 << 63)).values ^ (-1 << 63)
+        got = (shi.view(torch.int32).to(torch.int64) << 32) | (
+            slo.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+        if not torch.equal(got, want):
+            raise AssertionError("entry(): the sort differs from torch.sort")
+        print(f"entry(): {hi.shape[0]} two-word keys on {hi.device}, bit-equal to "
+              "torch.sort of their packed view")
+        for n in (1, 2, 4, 8):
+            before = {name: _build.KERNELS[name].launches for name in KERNEL_INFO}
+            shuffle.SORT_ROUTES.clear()
+            t0 = time.perf_counter()
+            ge.dryrun_multichip(n)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {name: _build.KERNELS[name].launches - before[name]
+                      for name in KERNEL_INFO}
+            routes = collections.Counter()
+            for (_, _, route), c in shuffle.SORT_ROUTES.items():
+                routes[route] += c
+            print(f"dryrun_multichip({n}): every step passed in {dt:.3f} s; launches "
+                  f"{counts}; shuffle sorts by route {dict(routes)}")
+    return recorded_child("torch_graft_entry.py", run)
+
+
+# torch_bench.py's runs in the entry-points phase: (arguments, the log2 sizes
+# it must print, the kernels it must launch); bench.py's flags, with the
+# low-memory plan at the default size so that B4/B5 lie on the bench's path
+_B23 = ("bitonic_tail", "bitonic_span")
+BENCH_RUNS = [
+    ([], [25], _B23),
+    (["--plan", "lowmem"], [25], ("merge_stage", "merge_tail")),
+    (["--sweep"], [25, 26, 27, 28], _B23),
+    (["--sweep-large", "--try-2e30"], [28, 29, 30], _B23),
+    (["--sweep-large", "--try-2e30", "--planes", "1"], [28, 29, 30], _B23),
+]
+_CHECKED = re.compile(r"n=(\d+) words=\d+ plan=\S+: the last step is bit-equal")
+_PEAK = re.compile(r"peak device memory n=(\d+) words=\d+: (\d+) B")
+
+
+def _entry_child(args, label, need, launches):
+    """Run ``chip_smoke.py ARGS`` alone in a fresh child; print its lines,
+    add its launch counts to ``launches`` and require the kernels ``need``.
+    Returns its standard output's and standard error's lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), *args], cwd=root,
+                       env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+                       text=True, timeout=900)
+    out, err = p.stdout.strip().splitlines(), p.stderr.splitlines()
+    if p.returncode != 0 or not out:
+        raise AssertionError(f"{label}: exit {p.returncode}\n{p.stderr[-3000:]}")
+    for line in out[:-1]:
+        print(f"{label}: {line}")
+    for line in err:
+        if line.startswith("torch_bench: "):
+            print(f"{label}: {line[len('torch_bench: '):]}")
+    counted = json.loads(out[-1])["launches"]
+    print(f"{label}: exit 0 in {time.perf_counter() - t0:.1f} s; launches {counted}")
+    for name in KERNEL_INFO:
+        launches[name] += counted[name]
+    if any(counted[name] <= 0 for name in need):
+        raise AssertionError(f"{label}: did not launch {need}: {counted}")
+    return out, err
+
+
+def entry_phase(launches):
+    """The root entry points on the card: every run of ``BENCH_RUNS`` and
+    :func:`graft_child`, each in a fresh child, one at a time (the 2^30
+    sizes hold tens of GiB).  Every size must print a rate above 0 and its
+    last step must be bit-equal to ``torch.sort``, except that an
+    out-of-memory line at 2^30 is a finding, printed with its peak.  Each
+    child holds every kernel shape it launched against its plain version."""
+    t0 = time.perf_counter()
+    for args, logns, need in BENCH_RUNS:
+        label = f"torch_bench.py {' '.join(args)}".strip()
+        out, err = _entry_child(["--harness", "torch_bench.py", *args], label, need,
+                                launches)
+        rows = [json.loads(line) for line in out if line.startswith('{"metric"')]
+        sizes = [int(r["metric"].rsplit("_n", 1)[1]) for r in rows]
+        if sizes != [1 << e for e in logns]:
+            raise AssertionError(f"{label}: sizes {sizes}")
+        checked = {int(m.group(1)) for m in map(_CHECKED.search, err) if m}
+        peaks = {int(m.group(1)): int(m.group(2)) for m in map(_PEAK.search, err) if m}
+        for n, r in zip(sizes, rows):
+            if "error" in r:
+                if n == 1 << 30 and "OutOfMemoryError" in r["error"]:
+                    print(f"finding: {label}: {r['metric']} ran out of device memory "
+                          f"at a peak of {peaks[n]} B ({peaks[n] / GiB:.2f} GiB): "
+                          f"{r['error']}")
+                    continue
+                raise AssertionError(f"{label}: {r}")
+            if not r["value"] > 0 or n not in checked:
+                raise AssertionError(f"{label}: n={n}: {r}; last step checked: "
+                                     f"{n in checked}")
+    _entry_child(["--graft"], "torch_graft_entry.py", ("remote_exchange",), launches)
+    print(f"entry points: {len(BENCH_RUNS)} torch_bench.py runs and torch_graft_entry.py "
+          f"exited 0 on the card in {time.perf_counter() - t0:.1f} s (one at a time)")
+
+
 def main() -> int:
     if sys.argv[1:] == ["--trace"]:
         return trace_child()
     if sys.argv[1:2] == ["--harness"]:
         return harness_child(sys.argv[2:])
+    if sys.argv[1:] == ["--graft"]:
+        return graft_child()
     if sys.argv[1:2] == ["--dist"]:
         return dist_child(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     import torch
@@ -2413,6 +2596,7 @@ def main() -> int:
     trace_phase(launches)
     multiprocess_phase(launches)
     harness_phase(launches)
+    entry_phase(launches)
     print(f"launches on the paths: {launches}")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

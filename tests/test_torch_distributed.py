@@ -435,7 +435,9 @@ def test_gather_valid_without_mesh_unchanged():
         np.testing.assert_array_equal(got[0], want[0])
 
 
-_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|rdst_tpu)(\.|\s|$)", re.M)
+# JAX, the JAX package, or its root entry points (bench.py, __graft_entry__.py)
+_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|rdst_tpu|bench|__graft_entry__)(\.|\s|$)",
+                     re.M)
 # a JAX script of scripts/ (the port's scripts are scripts/torch_*.py)
 _JAX_SCRIPT = re.compile(r"^\s*(import|from)\s+scripts(\.(?!torch_)\w+|\s+import\s+(?!torch_))",
                          re.M)
@@ -445,11 +447,13 @@ _JAX_SCRIPT = re.compile(r"^\s*(import|from)\s+scripts(\.(?!torch_)\w+|\s+import
     "rdst_tpu_torch", "chip_smoke.py", "scripts/torch_bench_suite.py",
     "scripts/torch_bench_single_algo.py", "scripts/torch_timings.py",
     "scripts/torch_capacity_study.py", "scripts/torch_bench_mesh.py",
-    "scripts/torch_suite_steps.py", "fixtures/torch_consumer.py"])
+    "scripts/torch_suite_steps.py", "fixtures/torch_consumer.py", "torch_bench.py",
+    "torch_graft_entry.py"])
 def test_port_imports_no_jax(where):
-    """No module of the port, not ``chip_smoke.py`` and none of the port's
-    harnesses or its consumer fixture imports JAX, the JAX package
-    (``rdst_tpu``; ``rdst_tpu_torch`` is the port) or a JAX script."""
+    """No module of the port, not ``chip_smoke.py``, none of the port's
+    harnesses, its consumer fixture or its root entry points imports JAX,
+    the JAX package (``rdst_tpu``; ``rdst_tpu_torch`` is the port), a JAX
+    script or a JAX root entry point."""
     path = ROOT / where
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
     assert files
