@@ -65,6 +65,19 @@ Phases, each printing its own lines:
          memory; after the paths, B2/B3 at every shape the table paths
          launched them with and B6 at every exchange they made, each
          against its plain version;
+       - the cards phase: the mesh over several card entries of this
+         process (``cards_phase``): ``make_mesh(8, devices=[card] * 4)``
+         (four streams on the one card) for the stable 2^28 shuffle, plain
+         and overlapped, ``make_mesh_2d(2, 4)`` on 2 and 4 entries, and the
+         table phase's TPC-H paths (filter, both aggregates, the hash join,
+         ORDER BY), each driven with its launches counted and bit-equal to
+         the same call on the one-entry mesh (read to the host first), with
+         both warm times; then every multi-card B6 call's shape (one launch
+         per receiving card) against the plain per-card form, its bound
+         from the busiest card (words from other cards over NVLink's 450
+         GB/s against its own reads and writes over HBM); where the machine
+         has two or more cards, the same on every card with each pair's
+         peer access, else one line saying that part did not run;
        - the native host runtime (``native/host.py``), built with g++: its
          sorts at 2^20 and 2^10 keys and its histogram against their numpy
          versions, and the time a thread takes to start;
@@ -1046,6 +1059,269 @@ def table_paths(torch, par, dev, gen, drive, planes_of, check, n_lineitem=1 << 2
               moved=lambda g: 4 * k * landed + nbytes(g))
         del src
     torch.cuda.empty_cache()
+
+
+NVLINK = 450e9  # bytes/s each way between two H100 SXM cards
+
+
+def _plane_host(p, devices):
+    """A plane of a result on the host: one tensor, or per-card blocks
+    (each checked to lie on its card) concatenated in card order."""
+    import torch
+
+    from rdst_tpu_torch import _planes as P
+
+    if not isinstance(p, list):
+        return P.sview(p).cpu()
+    if [b.device for b in p] != list(devices):
+        raise AssertionError(f"blocks on {[str(b.device) for b in p]}, cards {devices}")
+    return torch.cat([P.sview(b).cpu() for b in p])
+
+
+def sort_host(r, devices):
+    """``distributed_sort``'s (words, payloads, counts) on the host."""
+    return [_plane_host(p, devices) for p in list(r[0]) + list(r[1])] + [r[2].cpu()]
+
+
+def table_host(r, devices):
+    """A table operator's (Table or one Table a card, count) on the host."""
+    import torch
+
+    from rdst_tpu_torch import _planes as P
+
+    ts = r[0] if isinstance(r[0], list) else [r[0]]
+    if len(ts) > 1 and [t.device for t in ts] != list(devices):
+        raise AssertionError(f"tables on {[str(t.device) for t in ts]}, cards {devices}")
+    cols = [torch.cat([P.sview(t[c]).cpu() for t in ts]) for c in ts[0].column_names]
+    n = r[1]
+    return cols + [n.cpu() if isinstance(n, torch.Tensor) else torch.tensor(n)]
+
+
+def b6_cards_bound(rd, sizes, cap, k, send_cards, recv_cards, devices):
+    """Bytes and bound of one multi-card exchange: per physical card, the
+    words landing from other physical cards over NVLink against its own
+    words read plus every receive word written over HBM; the largest card
+    sets the bound.  Returns (hbm bytes of the largest, nvlink bytes of the
+    largest, bound ms)."""
+    landed = rd.exchange_layout(sizes, cap).landed  # (S, R)
+    per_dev = {}
+    for d, rc in enumerate(recv_cards):
+        phys = devices[rc]
+        hbm, link = per_dev.get(phys, (0, 0))
+        for s, sc in enumerate(send_cards):
+            words = int(landed[s, d]) * k
+            if devices[sc] == phys:
+                hbm += 4 * words
+            else:
+                link += 4 * words
+        per_dev[phys] = (hbm + 4 * k * cap, link)
+    bound = max(max(h / HBM, l / NVLINK) for h, l in per_dev.values()) * 1e3
+    worst = max(per_dev.values(), key=lambda x: max(x[0] / HBM, x[1] / NVLINK))
+    return worst[0], worst[1], bound
+
+
+def cards_calls(torch, P, par, rd, dev, gen, planes_u32, drive, entries, entries_2d, nl=1 << 25, n_lineitem=1 << 26, n_orders=1 << 24):
+    """The shuffle and the table operators on a mesh of 8 shards over the
+    card entries ``entries`` (``entries_2d`` for ``make_mesh_2d(2, 4)``):
+    each call's one-entry result on ``dev`` read to the host first, then
+    the same call on the entries, driven with its launches counted,
+    bit-equal; each call's warm time (host clock to a synchronize, median
+    of ``WARM_CALLS``) beside the one-entry time; each multi-card B6 launch
+    recorded and then held against its plain version."""
+    from rdst_tpu_torch.parallel import shuffle
+
+    D = 8
+    n28 = D * nl
+    sent = []  # (label, senders' (dtypes, length), offs, sizes, cap, cards, devices)
+    real = shuffle.remote_dma_exchange_cards
+
+    def recorder(label):
+        def rec(planes, offs, sizes, capacity, send_cards, recv_cards, devs, streams=None):
+            kept = []
+            for sc, o, z in zip(send_cards, offs, sizes):  # on the sender's stream
+                with (contextlib.nullcontext() if streams is None
+                      else torch.cuda.stream(streams[sc])):
+                    kept.append((o.clone(), z.clone()))
+            sent.append((label, [([p.dtype for p in ps], int(ps[0].shape[0]))
+                                 for ps in planes],
+                         [o for o, _ in kept], [z for _, z in kept],
+                         capacity, list(send_cards), list(recv_cards), list(devs)))
+            return real(planes, offs, sizes, capacity, send_cards, recv_cards, devs,
+                        streams)
+        return rec
+
+    def warm(fn):
+        times = []
+        for _ in range(WARM_CALLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            del again
+        return statistics.median(times) * 1e3
+
+    def compare(label, rows, one_fn, many_fn, mesh, exchanges, host=sort_host):
+        """One entry, then the entries (launches counted; a call that
+        exchanges must launch B6 on several cards); bit-equal; warm times."""
+        ref = host(one_fn(), [dev])
+        torch.cuda.empty_cache()
+        t_one = warm(one_fn)
+        shuffle.remote_dma_exchange_cards = recorder(label)
+        try:
+            got, _ = drive(f"{label} on {len(mesh.devices)} card entries", rows, many_fn,
+                           exchange=exchanges > 0)
+        finally:
+            shuffle.remote_dma_exchange_cards = real
+        b6 = sum(1 for x in sent if x[0] == label)
+        if b6 < exchanges:
+            raise AssertionError(f"{label}: {b6} multi-card exchanges, want >= {exchanges}")
+        g = host(got, mesh.devices)
+        del got
+        if len(g) != len(ref) or not all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(g, ref)):
+            raise AssertionError(f"{label}: {len(mesh.devices)} card entries differ "
+                                 "from the one-entry mesh")
+        del g, ref
+        torch.cuda.empty_cache()
+        t_many = warm(many_fn)
+        print(f"cards {label}: bit-equal to the one-entry mesh; warm {t_many:.3f} ms "
+              f"on {len(mesh.devices)} entries {[str(d) for d in mesh.devices]} "
+              f"against {t_one:.3f} ms on one (median of {WARM_CALLS}, host clock to a "
+              f"synchronize; {rows / t_many * 1e3:,.0f} rows/s against "
+              f"{rows / t_one * 1e3:,.0f}); {b6} multi-card B6 calls")
+        torch.cuda.empty_cache()
+
+    one = par.make_mesh(D, device=dev)
+    many = par.make_mesh(D, devices=entries)
+    hi, lo = planes_u32(n28, 2)
+    pay = P.arange(n28, torch.uint32, dev)
+    for overlap in (False, True):
+        compare(f"distributed_sort 2^28 u64 + u32 stable{', overlapped' if overlap else ''}",
+                n28,
+                lambda: par.distributed_sort([hi, lo], [pay], mesh=one, stable=True,
+                                             overlap_exchange=overlap),
+                lambda: par.distributed_sort([hi, lo], [pay], mesh=many, stable=True,
+                                             overlap_exchange=overlap),
+                many, 2 if overlap else 1)
+    one2 = par.make_mesh_2d(2, 4, device=dev)
+    for ents in entries_2d:
+        many2 = par.make_mesh_2d(2, 4, devices=ents)
+        compare(f"make_mesh_2d(2, 4) distributed_sort 2^28 u64 + u32 stable, "
+                f"{len(ents)} entries", n28,
+                lambda: par.distributed_sort([hi, lo], [pay], mesh=one2, stable=True,
+                                             axis=one2.axis_names),
+                lambda: par.distributed_sort([hi, lo], [pay], mesh=many2, stable=True,
+                                             axis=many2.axis_names),
+                many2, 1)
+        del many2
+    del hi, lo, pay
+    torch.cuda.empty_cache()
+
+    import rdst_tpu_torch as rt
+
+    lineitem, orders, cutoff, _ = tpch_tables(torch, dev, gen, n_lineitem, n_orders)
+    li, od = rt.Table(lineitem), rt.Table(orders)
+    mask = lineitem["shipdate"] <= cutoff
+    n_l, n_o = lineitem["orderkey"].numel(), orders["orderkey"].numel()
+    aggs = {"sum_qty": ("quantity", "sum"), "n": ("quantity", "count"),
+            "avg_qty": ("quantity", "mean"), "max_price": ("extendedprice", "max")}
+    paths = [
+        ("table: distributed_filter lineitem, Q1's shipdate cut", n_l,
+         lambda m: par.distributed_filter(li, mask, mesh=m), 0),
+        ("table: distributed_group_aggregate lineitem by orderkey, hash", n_l,
+         lambda m: par.distributed_group_aggregate(li, "orderkey", aggs, mesh=m,
+                                                   partition="hash"), 1),
+        ("table: distributed_group_aggregate lineitem by orderkey, range", n_l,
+         lambda m: par.distributed_group_aggregate(li, "orderkey", aggs, mesh=m), 1),
+        ("table: distributed_join lineitem x orders on orderkey, inner, hash", n_l + n_o,
+         lambda m: par.distributed_join(li, od, "orderkey", mesh=m, partition="hash"), 2),
+        ("table: distributed_sort_table orders by totalprice, stable", n_o,
+         lambda m: par.distributed_sort_table(od, "totalprice", mesh=m, stable=True), 1),
+    ]
+    for label, rows, fn, exchanges in paths:
+        compare(label, rows, lambda: fn(one), lambda: fn(many), many, exchanges,
+                table_host)
+    del li, od, lineitem, orders, mask
+    torch.cuda.empty_cache()
+    return sent
+
+
+def check_b6_cards(torch, par, rd, dev, entries, sent, planes_of, check):
+    """Every shape of multi-card B6 call in ``sent`` against the plain
+    per-card form, on fresh random planes placed on the senders' cards,
+    the launches of one call counted (one per receiving card); the call
+    runs inside ``Mesh.call`` of a mesh on ``entries``, so CUDA events on
+    the current stream time all its cards."""
+    mesh = par.make_mesh(8, devices=entries)
+    seen = set()
+    for label, senders, offs, sizes, cap, sc, rc, devs in sent:
+        key = (tuple((tuple(d), n) for d, n in senders), tuple(sc), tuple(rc), cap)
+        if key in seen:
+            continue
+        seen.add(key)
+        k = len(senders[0][0])
+        src = [[p.to(devs[c]) for p in planes_of(n, dtypes)]
+               for (dtypes, n), c in zip(senders, sc)]
+        hbm, link, bound = b6_cards_bound(rd, torch.stack([z.to(dev) for z in sizes]),
+                                          cap, k, sc, rc, devs)
+
+        def flat(out):
+            return [t for recv, demand, arrived in out for t in recv + [demand, arrived]]
+
+        def kernel():
+            with mesh.call():
+                return flat(rd.remote_dma_exchange_cards(
+                    src, offs, sizes, cap, sc, rc, devs, mesh.streams))
+
+        before = rd.EXCHANGE.launches
+        kernel()
+        torch.cuda.synchronize()
+        per_call = rd.EXCHANGE.launches - before
+        if per_call != len(set(rc)):
+            raise AssertionError(f"B6 cards: {per_call} launches for "
+                                 f"{len(set(rc))} receiving cards")
+        check("remote_exchange",
+              f"multi-card, {label}: {len(sc)} senders x {len(rc)} receivers on "
+              f"{len(set(rc))} receiving cards {sorted(set(rc))} of "
+              f"{[str(d) for d in devs]}, {k} planes, capacity {cap}, "
+              f"{per_call} launches a call; bound: {hbm} B over HBM, {link} B over "
+              f"NVLink at the busiest card",
+              kernel,
+              lambda: flat(rd.remote_dma_exchange_cards_plain(
+                  src, offs, sizes, cap, rc, devs)),
+              moved=lambda g: bound * 1e-3 * HBM)
+        del src
+
+
+def cards_phase(torch, P, par, rd, dev, gen, planes_u32, planes_of, drive, check):
+    """A mesh over several card entries of this process.  On every machine:
+    ``make_mesh(8, devices=[dev] * 4)`` (four streams on the one card) and
+    ``make_mesh_2d(2, 4)`` on 2 and 4 entries, each call bit-equal to the
+    one-entry mesh, and every multi-card B6 launch against its plain
+    version at the shape it ran (bytes over HBM: one physical card).  Where
+    the machine has several cards, the same calls on every card, with each
+    pair's peer access and B6's NVLink bound."""
+    t0 = time.perf_counter()
+    runs = [([dev] * 4, [[dev] * 2, [dev] * 4])]
+    count = torch.cuda.device_count()
+    if count >= 2:
+        k = max(x for x in (2, 4, 8) if x <= count)
+        cards = [torch.device("cuda", i) for i in range(k)]
+        for a in cards:
+            print("cards: peer access " + ", ".join(
+                f"{a} -> {b}: {torch.cuda.can_device_access_peer(a, b)}"
+                for b in cards if b != a))
+        runs.append((cards, [cards[:2], cards] if k >= 4 else [cards[:2]]))
+    else:
+        print("cards: this machine has 1 card: the calls on several physical cards "
+              "(peer reads over NVLink) did not run; the entries share the one card")
+    for entries, entries_2d in runs:
+        sent = cards_calls(torch, P, par, rd, dev, gen, planes_u32, drive, entries,
+                           entries_2d)
+        check_b6_cards(torch, par, rd, dev, entries, sent, planes_of, check)
+        torch.cuda.empty_cache()
+    print(f"cards phase: {time.perf_counter() - t0:.1f} s")
 
 
 def cpu_model() -> str:
@@ -2591,6 +2867,7 @@ def main() -> int:
     distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32, planes_of,
                       drive, check)
     table_paths(torch, par, dev, gen, drive, planes_of, check)
+    cards_phase(torch, P, par, rd, dev, gen, planes_u32, planes_of, drive, check)
     host_runtime(rng)
     crossover(rt, config, _build, rng, launches)
     trace_phase(launches)

@@ -30,8 +30,12 @@
 // waits for them; each block sums the sizes of the senders before s to find
 // where s's segment lands, so the layout needs no table of its own.  Sender
 // planes and receiver buffers come as a table of pointers, so the same kernel
-// serves buffers on the sender's own card and, later, peer-mapped buffers of
-// other cards.
+// serves senders on its own card and, between the cards of one process,
+// senders on other cards, read through peer access (rdst_enable_peer below):
+// there the wrapper launches once per receiving card, on that card's stream,
+// with that card's (S, R_c) column block of the size matrix, and since a
+// block sums only its own column, a column block lands every segment where
+// the square exchange does.
 //
 // Copies are 16 bytes wide at any alignment: a piece peels scalar words
 // until its destination is 16-byte aligned, then stores aligned uint4s; where
@@ -50,8 +54,17 @@
 // Ordering, the counterpart of the barrier: receivers read only after the
 // launch, which stream order gives with all shards on one card.  A remote
 // sender's block was written by a collective that the current stream has
-// waited for before this launch.  Shards on several cards of one process
-// need events around it: not done here.
+// waited for before this launch.  Between the cards of one process the
+// wrapper orders with events: a receiving card's stream waits on one event
+// of every sending card's stream before its launch, and every sending card's
+// stream waits on every receiving card's completion afterwards, so no sender
+// plane is reused while a peer still reads it.
+//
+// Bound between cards: a receiving card's bytes from other cards over
+// NVLink's 450 GB/s each way, against its own words read plus every receive
+// word written over 3.35 TB/s; the larger is the card's bound, the largest
+// card's the exchange's.  With every card entry on one card, that is the
+// HBM bound above.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -226,4 +239,26 @@ extern "C" int rdst_remote_exchange(const void* ptrs, const void* src_off,
                   static_cast<unsigned int>(n_planes));
   exchange_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(X);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Let kernels on `device` dereference `peer`'s memory: the counterpart of the
+// TPU's remote DMA reach.  Returns cudaErrorPeerAccessUnsupported where the
+// pair cannot map; a pair already mapped (PyTorch maps pairs in its own copy
+// path) is a success.  The error state is cleared and the current device
+// restored either way.
+extern "C" int rdst_enable_peer(int device, int peer) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int can = 0;
+  err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err == cudaSuccess && !can) err = cudaErrorPeerAccessUnsupported;
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) err = cudaSuccess;
+  }
+  cudaGetLastError();
+  cudaSetDevice(prev);
+  return static_cast<int>(err);
 }

@@ -10,7 +10,21 @@ over a mesh of shards.
     joined, n = distributed_join(fact, dim, "k", mesh=mesh)
 
 ``make_mesh(8, device="cpu")`` runs the same code with the exchange's plain
-version.  One process per card (or per CPU rank), under ``torchrun
+version.  Several cards of one process, a block of shards each:
+
+    mesh = make_mesh(8, devices=["cuda:0", "cuda:1", "cuda:2", "cuda:3"])
+    words, payloads, counts = distributed_sort([hi, lo], [pay], mesh=mesh)
+    # words[0] is [card 0's block, ..., card 3's block], each on its card
+    hi_s, lo_s, pay_s = gather_valid(words + payloads, counts)
+
+Each card sorts on its own stream, and the exchange (kernel B6) launches
+once per receiving card, reading the other cards' planes through peer
+access, ordered by events.  Outputs are per card (the blocks, concatenated
+in card order, are the one-card result; the table operators return one
+Table a card); ``counts`` stays one tensor on the first card.  Entries may
+repeat a card (``["cuda:0"] * 4``: four streams on one card, the cards'
+code on a machine with one), and ``["cpu"] * 4`` runs the same grouping on
+the host.  One process per card (or per CPU rank), under ``torchrun
 --nproc_per_node=N``:
 
     init_distributed()                        # NCCL; gloo for device="cpu"
@@ -27,7 +41,10 @@ output (the static-length outputs of ``distributed_sort_table`` and
 join rows of its shards with the global group or match count), so the
 ranks' outputs, concatenated rank by rank, are the one-process result.
 ``init_distributed(device="cpu", init_method="file:///tmp/rdv", rank=r,
-world_size=n)`` starts gloo without torchrun.
+world_size=n)`` starts gloo without torchrun.  A rank holds one card: a
+mesh over processes with ``devices`` of several raises
+``NotImplementedError`` (ranks that each hold several cards, the JAX
+package's multi-host pod, are not done).
 """
 from rdst_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh, make_mesh_2d
 from rdst_tpu_torch.parallel.shuffle import (

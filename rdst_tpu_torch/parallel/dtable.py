@@ -26,9 +26,18 @@ share) and gets back its shards' output with the global counts; the
 outputs of the ranks, concatenated rank by rank, are the one-process
 result.  Every rank issues the same collectives in the same order, and
 every ``OverflowError`` is decided on global counts, so all ranks raise
-it or none does.  Every operator runs on ``mesh.device``; a table
-elsewhere is copied there first.  The aggregate and the join densify their
-outputs on that device: each of this process's shards' valid prefix,
+it or none does.  Every operator runs on the mesh's cards: a table's rows
+are split over them in order (card c's block copied to card c on its
+stream where it lies elsewhere), each shard's work runs on its card's
+stream, and the boundary combine's gathered rows and the counts on card 0,
+each card reading its own copy.  On one card (``devices=None``) the
+operator returns one ``Table``; on K > 1 cards, one per card, card c's on
+card c: concatenated in card order they are the one-card result (the
+static-length outputs of the sort and the filter, and the densified rows
+of the aggregate and the join alike; nothing is gathered onto card 0).
+The counts, the group count and the match count stay as on one card.  A
+table in may also be such a list, one ``Table`` per card.  The aggregate
+and the join densify on each card: its shards' valid prefixes,
 concatenated, after one host read of the gathered per-shard counts.
 """
 from __future__ import annotations
@@ -44,7 +53,7 @@ from rdst_tpu_torch import keys as _keys
 from rdst_tpu_torch.builder import _encode_payload
 from rdst_tpu_torch.parallel.mesh import Mesh
 from rdst_tpu_torch.parallel.shuffle import (
-    _check_axis, distributed_sort, partition_exchange,
+    _capacity, _check_axis, distributed_sort, partition_exchange,
 )
 from rdst_tpu_torch.table import ops as tops
 from rdst_tpu_torch.table.table import Table
@@ -83,10 +92,47 @@ def _hash_plane(words) -> torch.Tensor:
     return P.narrow(h, torch.uint32)
 
 
-def _on_mesh(table: Table, mesh: Mesh) -> Table:
-    if table.device == mesh.device:
-        return table
-    return Table({c: table.column(c).to(mesh.device) for c in table.column_names})
+def _on_mesh(table, mesh: Mesh) -> list[Table]:
+    """The table's rows split over the mesh's cards in order, card c's on
+    card c (copied there on its stream where they lie elsewhere); a list
+    of one table per card passes, each moved to its card."""
+    K = len(mesh.devices)
+    if isinstance(table, (list, tuple)):
+        if len(table) != K:
+            raise ValueError(f"{len(table)} tables for {K} cards")
+        parts = list(table)
+    else:
+        n = table.n_rows
+        if n % mesh.n_local:
+            raise ValueError(f"length {n} not divisible by the {mesh.n_local} "
+                             "shards of this process")
+        b = n // K
+        parts = [table if K == 1 else
+                 Table({c: table.column(c)[i * b:(i + 1) * b] for c in table.column_names})
+                 for i in range(K)]
+    out = []
+    for c, (t, dev) in enumerate(zip(parts, mesh.devices)):
+        with mesh.on(c):
+            out.append(t if t.device == dev else
+                       Table({name: t.column(name).to(dev) for name in t.column_names}))
+    return out
+
+
+def _planes(per_card):
+    """Each card's plane list -> the shuffle's planes: tensors on one card,
+    per-card lists on several."""
+    if len(per_card) == 1:
+        return list(per_card[0])
+    return [list(blocks) for blocks in zip(*per_card)]
+
+
+def _block(plane, c):
+    """Card c's block of a plane of the shuffle's output."""
+    return plane[c] if isinstance(plane, list) else plane
+
+
+def _per_card(tables):
+    return tables[0] if len(tables) == 1 else tables
 
 
 def _encode_table(table: Table, by):
@@ -148,41 +194,62 @@ def distributed_sort_table(
     """Global ORDER BY over the mesh.  Returns (Table of D * capacity rows
     in device-major order, (D,) per-shard valid counts).  On a mesh over
     processes each rank passes its own rows and gets its shards' L *
-    capacity rows with the global (D,) counts."""
-    table = _on_mesh(table, mesh)
-    by, nk, _, enc, payload_words = _encode_table(table, by)
-    words, payloads, counts = distributed_sort(
-        list(nk.words), payload_words, mesh=mesh, axis=axis,
-        capacity_factor=capacity_factor, stable=stable,
-        overlap_exchange=overlap_exchange,
-    )
-    cols = _key_columns(by, nk, words)
-    cols.update(_decode_columns(enc, payloads))
-    return Table({c: cols[c] for c in table.column_names}), counts
+    capacity rows with the global (D,) counts.  On K > 1 cards, one Table
+    a card."""
+    with mesh.call():
+        tables = _on_mesh(table, mesh)
+        encs = []
+        for c in mesh.cards:
+            with mesh.on(c):
+                encs.append(_encode_table(tables[c], by))
+        words, payloads, counts = distributed_sort(
+            _planes([e[1].words for e in encs]), _planes([e[4] for e in encs]),
+            mesh=mesh, axis=axis, capacity_factor=capacity_factor, stable=stable,
+            overlap_exchange=overlap_exchange,
+        )
+        out = []
+        for c in mesh.cards:
+            by_c, nk, _, enc, _ = encs[c]
+            with mesh.on(c):
+                cols = _key_columns(by_c, nk, [_block(w, c) for w in words])
+                cols.update(_decode_columns(enc, [_block(p, c) for p in payloads]))
+            out.append(Table({n: cols[n] for n in tables[c].column_names}))
+    return _per_card(out), counts
 
 
 def distributed_filter(table: Table, mask, *, mesh: Mesh, axis: str = "shard"):
     """A local filter on every shard (no exchange): each shard's kept rows
     packed left in stable order, its other rows after them, with (D,) int32
     per-shard counts.  On a mesh over processes the table and the mask are
-    this rank's rows; the counts are global (one ``all_gather``)."""
+    this rank's rows; the counts are global (one ``all_gather``).  On K > 1
+    cards, one Table a card (the mask split as the rows, or one per card)."""
     _check_axis(mesh, axis)
-    table = _on_mesh(table, mesh)
-    L = mesh.n_local
-    n = table.n_rows
-    if n % L:
-        raise ValueError(f"length {n} not divisible by the {L} shards of this process")
-    mask = _keys._to_tensor(mask, mesh.device).to(mesh.device)
-    if mask.dtype != torch.bool:
-        mask = mask != 0
-    # every shard's stable 1-bit sort at once: rows of the (L, n / L) view
-    keep = mask.view(L, n // L)
-    idx = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
-    idx += torch.arange(0, n, n // L, device=mesh.device)[:, None]
-    idx = idx.view(-1)
-    cols = {c: tops._take(table.column(c), idx) for c in table.column_names}
-    counts = mesh.all_gather(list(keep.sum(1)))  # int64: what collectives carry
-    return Table(cols), counts.to(torch.int32)
+    with mesh.call():
+        tables = _on_mesh(table, mesh)
+        K, L = len(mesh.devices), mesh.per_card
+        if isinstance(mask, (list, tuple)):
+            masks = list(mask)
+        else:  # split first: each card's part reaches it on its stream
+            b = int(mask.shape[0]) // K
+            masks = [mask[c * b:(c + 1) * b] for c in range(K)]
+        outs, kept = [], []
+        for c, (t, dev) in enumerate(zip(tables, mesh.devices)):
+            with mesh.on(c):
+                m = _keys._to_tensor(masks[c], dev).to(dev)
+                if m.dtype != torch.bool:
+                    m = m != 0
+                n = t.n_rows
+                # every shard's stable 1-bit sort at once: rows of the
+                # (L, n / L) view
+                keep = m.view(L, n // L)
+                idx = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
+                idx += torch.arange(0, n, n // L, device=dev)[:, None]
+                idx = idx.view(-1)
+                outs.append(Table({name: tops._take(t.column(name), idx)
+                                   for name in t.column_names}))
+                kept.extend(keep.sum(1))  # int64: what collectives carry
+        counts = mesh.all_gather(kept)
+    return _per_card(outs), counts.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -309,10 +376,12 @@ def _boundary_rows(mesh: Mesh, local: list):
     nk = local[0]["first_key"].shape[0]
     names = list(local[0]["packed"])
     dts = [P.sview(local[0]["packed"][k]).dtype for k in names]
-    rows = [torch.cat([x["has"].to(torch.int64).view(1), x["first_key"], x["last_key"],
-                       x["sizes"][:1].to(torch.int64)]
-                      + [_bits64(P.sview(x["packed"][k][:1])) for k in names])
-            for x in local]
+    rows = [None] * len(local)
+    for i, _ in mesh.each():
+        x = local[i]
+        rows[i] = torch.cat([x["has"].to(torch.int64).view(1), x["first_key"],
+                             x["last_key"], x["sizes"][:1].to(torch.int64)]
+                            + [_bits64(P.sview(x["packed"][k][:1])) for k in names])
     g = mesh.all_gather(rows)  # (D, 2 nk + 2 + partials)
     partials = {k: _from_bits64(g[:, 2 * nk + 2 + j], dt)
                 for j, (k, dt) in enumerate(zip(names, dts))}
@@ -329,11 +398,17 @@ def _agg_combine(mesh: Mesh, plan: _AggPlan, local: list):
     shard ``mesh.shards[i]``'s state.  Returns per local shard (output
     planes: key words, then one per aggregate; its group count)."""
     D = mesh.size
-    dev = mesh.device
-    g_has, g_first, g_last, first_sizes, first_partials = _boundary_rows(mesh, local)
-    d_iota = torch.arange(D, device=dev)
-    outs, counts = [], []
-    for me, x in zip(mesh.shards, local):
+    g_has, g_first, g_last, first_sizes, partials = _boundary_rows(mesh, local)
+    names = list(partials)
+    rep = mesh.replicas(g_has, g_first, g_last, first_sizes, *partials.values())
+    outs, counts, iotas = [None] * len(local), [None] * len(local), {}
+    for i, c in mesh.each():
+        me, x, dev = mesh.shards[i], local[i], mesh.devices[c]
+        g_has, g_first, g_last, first_sizes = rep[c][:4]
+        first_partials = dict(zip(names, rep[c][4:]))
+        if c not in iotas:
+            iotas[c] = torch.arange(D, device=dev)
+        d_iota = iotas[c]
         n = x["gstart"].shape[0]
         has = x["has"]
         suppressed = has & ((d_iota < me) & g_has
@@ -381,8 +456,8 @@ def _agg_combine(mesh: Mesh, plan: _AggPlan, local: list):
         rot = (torch.arange(n, device=dev) + shift) % n
         keys = [P.take(P.take(w, x["gstart"]), rot) for w in x["kw"]]
         aggs = [tops._take(packed[name], rot) for name, _ in plan.val_specs]
-        outs.append(keys + aggs)
-        counts.append(x["G"] - shift)
+        outs[i] = keys + aggs
+        counts[i] = x["G"] - shift
     return outs, counts
 
 
@@ -409,8 +484,9 @@ def distributed_group_aggregate(
     min/max by a value-keyed local sort), and groups that straddle a shard
     boundary (possible when the shuffle rank-splits one key) are combined
     from gathered first-group partials (:func:`_agg_combine`).  Returns
-    (Table of group rows, densified on the mesh's device; a 0-dim int32
-    tensor of the group count).  On a mesh over processes each rank gets
+    (Table of group rows, densified on the mesh's device, or on K > 1
+    cards one Table a card, densified on it; a 0-dim int32 tensor of the
+    group count).  On a mesh over processes each rank gets
     its own shards' group rows and the global group count.
 
     ``partition="hash"`` shuffles by a leading 32-bit key hash instead of
@@ -421,72 +497,90 @@ def distributed_group_aggregate(
         if op not in tops._AGG_OPS:
             raise ValueError(f"unsupported agg op {op!r}")
     _check_partition(partition)
-    table = _on_mesh(table, mesh)
-    L = mesh.n_local
-    dev = mesh.device
+    with mesh.call():
+        return _group_aggregate(mesh, _on_mesh(table, mesh), by_list, aggs, axis,
+                                capacity_factor, overlap_exchange, partition)
+
+
+def _group_aggregate(mesh, tables, by_list, aggs, axis, capacity_factor,
+                     overlap_exchange, partition):
+    D, L = mesh.size, mesh.per_card
 
     # 1. shuffle rows by group key; value columns ride as payload words.  A
     # value column that is also a group key rides under an alias.
     need_cols = sorted({c for c, _ in aggs.values() if c is not None})
     alias = {c: (c + "\0v" if c in by_list else c) for c in need_cols}
-    sub_cols = {c: table.column(c) for c in by_list}
-    for c in need_cols:
-        sub_cols[alias[c]] = table.column(c)
-    _, nk, _, enc, payload_words = _encode_table(Table(sub_cols), by_list)
-    shuffle_words = list(nk.words)
-    if partition == "hash":
-        shuffle_words = [_hash_plane(nk.words)] + shuffle_words
+    encs, shuffle_words = [], []
+    for c, t in enumerate(tables):
+        sub_cols = {k: t.column(k) for k in by_list}
+        for k in need_cols:
+            sub_cols[alias[k]] = t.column(k)
+        with mesh.on(c):
+            encs.append(_encode_table(Table(sub_cols), by_list))
+            words_c = list(encs[-1][1].words)
+            if partition == "hash":
+                words_c = [_hash_plane(words_c)] + words_c
+        shuffle_words.append(words_c)
+    nk = encs[0][1]
     words, payloads, counts = distributed_sort(
-        shuffle_words, payload_words, mesh=mesh, axis=axis,
+        _planes(shuffle_words), _planes([e[4] for e in encs]), mesh=mesh, axis=axis,
         capacity_factor=capacity_factor, stable=True,
         overlap_exchange=overlap_exchange,
     )
-    cap = int(words[0].shape[0]) // L
+    cap = _capacity(words[0], mesh)
     if max(counts.tolist()) > cap:  # the global counts: every rank alike
         raise OverflowError("shuffle capacity exceeded; raise capacity_factor")
 
-    # 2. decode the value planes and build the plan
-    dec_cols = _decode_columns(enc, payloads)
-    val_specs, val_arrays, norm_planes, norm_widths, sentinels = [], [], [], [], []
-    for out_name, (col, op) in aggs.items():
-        if col is None or op == "count":
-            c = torch.zeros(L * cap, dtype=torch.int32, device=dev)
-        else:
-            c = dec_cols[alias[col]]
-        val_specs.append((out_name, op))
-        val_arrays.append(c)
-        if op in ("min", "max"):
-            vnk = _keys.normalize(c)
-            norm_planes.extend(vnk.words)
-            norm_widths.append(vnk.n_words)
-            sentinels.append(_sentinels(c.dtype))
-        else:
-            norm_widths.append(0)
-            sentinels.append((0, 0))
-    plan = _AggPlan(tuple(val_specs), tuple(norm_widths), tuple(sentinels))
-
-    # 3. every shard's segment reduction, then the boundary combine
+    # 2. decode the value planes, build the plan, and every shard's segment
+    # reduction (on its card), then the boundary combine
     nkw = nk.n_words + (1 if partition == "hash" else 0)
-    shards = _per_shard(list(words) + val_arrays + norm_planes, L)
-    local = [
-        _agg_local(plan, p[:nkw], p[nkw:nkw + len(val_arrays)],
-                   p[nkw + len(val_arrays):], counts[s])
-        for s, p in zip(mesh.shards, shards)
-    ]
-    del shards
+    cnts = mesh.replicas(counts)
+    local = [None] * mesh.n_local
+    plan = None
+    for c in mesh.cards:
+        with mesh.on(c):
+            dec_cols = _decode_columns(encs[c][3], [_block(p, c) for p in payloads])
+            val_specs, val_arrays, norm_planes, norm_widths, sentinels = [], [], [], [], []
+            for out_name, (col, op) in aggs.items():
+                if col is None or op == "count":
+                    v = torch.zeros(L * cap, dtype=torch.int32, device=mesh.devices[c])
+                else:
+                    v = dec_cols[alias[col]]
+                val_specs.append((out_name, op))
+                val_arrays.append(v)
+                if op in ("min", "max"):
+                    vnk = _keys.normalize(v)
+                    norm_planes.extend(vnk.words)
+                    norm_widths.append(vnk.n_words)
+                    sentinels.append(_sentinels(v.dtype))
+                else:
+                    norm_widths.append(0)
+                    sentinels.append((0, 0))
+            plan = _AggPlan(tuple(val_specs), tuple(norm_widths), tuple(sentinels))
+            shards = _per_shard([_block(w, c) for w in words] + val_arrays + norm_planes, L)
+            for j, p in enumerate(shards):
+                i = c * L + j
+                local[i] = _agg_local(plan, p[:nkw], p[nkw:nkw + len(val_arrays)],
+                                      p[nkw + len(val_arrays):], cnts[c][0][mesh.shards[i]])
+            del shards
     outs, gcounts = _agg_combine(mesh, plan, local)
     del local
 
-    # 4. densify on the device: one all_gather and one host read of the
-    # group counts, every shard's (the total) then this process's
+    # 3. densify on each card: one all_gather and one host read of the group
+    # counts, every shard's (the total) then this process's
     gc = mesh.read_gathered(gcounts, gcounts).tolist()
-    dense = _dense(outs, gc[mesh.size:])
     shift = nkw - nk.n_words  # the hash word is not a key column
-    cols = _key_columns(by_list, nk, dense[shift:nkw])
-    for (out_name, _), plane in zip(plan.val_specs, dense[nkw:]):
-        cols[out_name] = plane
-    total = torch.tensor(sum(gc[:mesh.size]), dtype=torch.int32, device=dev)
-    return Table(cols), total
+    out = []
+    for c in mesh.cards:
+        mine = slice(c * L, (c + 1) * L)
+        with mesh.on(c):
+            dense = _dense(outs[mine], gc[D:][mine])
+            cols = _key_columns(by_list, nk, dense[shift:nkw])
+        for (out_name, _), plane in zip(plan.val_specs, dense[nkw:]):
+            cols[out_name] = plane
+        out.append(Table(cols))
+    total = torch.tensor(sum(gc[:D]), dtype=torch.int32, device=mesh.device)
+    return _per_card(out), total
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +647,8 @@ def distributed_join(
     equal keys must not straddle shards), the right table routes through
     ``partition_exchange`` with it, and every shard joins its resident
     slices (:func:`_join_local`).  Returns (Table densified on the mesh's
-    device, the match count as an int).  On a mesh over processes both
+    device, or on K > 1 cards one Table a card, densified on it; the match
+    count as an int).  On a mesh over processes both
     sides are this rank's rows; each rank gets its own shards' output rows
     and the global match count.
 
@@ -575,47 +670,68 @@ def distributed_join(
     on_list = [on] if isinstance(on, str) else list(on)
     if right_capacity_factor is None:
         right_capacity_factor = capacity_factor
-    left, right = _on_mesh(left, mesh), _on_mesh(right, mesh)
-    hashed = partition == "hash"
+    with mesh.call():
+        return _join(mesh, _on_mesh(left, mesh), _on_mesh(right, mesh), on_list,
+                     axis, how, suffix, capacity_factor, right_capacity_factor,
+                     join_capacity_factor, overlap_exchange, partition == "hash")
 
-    by, nk, _, enc, payload_words = _encode_table(left, on_list)
-    shuffle_words = ([_hash_plane(nk.words)] if hashed else []) + list(nk.words)
+
+def _join(mesh, lefts, rights, on_list, axis, how, suffix, capacity_factor,
+          right_capacity_factor, join_capacity_factor, overlap_exchange, hashed):
+    def encode(tables):
+        encs, words = [], []
+        for c, t in enumerate(tables):
+            with mesh.on(c):
+                encs.append(_encode_table(t, on_list))
+                nk = encs[-1][1]
+                words.append(([_hash_plane(nk.words)] if hashed else []) + list(nk.words))
+        return encs, _planes(words), _planes([e[4] for e in encs])
+
+    lencs, lwords, lpay = encode(lefts)
+    by, nk, _, enc, payload_words = lencs[0]
     words, payloads, counts, part = distributed_sort(
-        shuffle_words, payload_words, mesh=mesh, axis=axis,
+        lwords, lpay, mesh=mesh, axis=axis,
         capacity_factor=capacity_factor, stable=True,
         split_uniform=False, return_partition=True,
         overlap_exchange=overlap_exchange,
     )
-    _, rnk, _, renc, rpayload_words = _encode_table(right, on_list)
+    rencs, rwords_in, rpay = encode(rights)
+    rnk, renc, rpayload_words = rencs[0][1], rencs[0][3], rencs[0][4]
     if rnk.n_words != nk.n_words:
         raise TypeError(
             "join key dtypes must normalize to the same width on both sides"
         )
-    rshuffle_words = ([_hash_plane(rnk.words)] if hashed else []) + list(rnk.words)
     rwords, rpayloads, rcounts = partition_exchange(
-        rshuffle_words, rpayload_words, part, mesh=mesh, axis=axis,
+        rwords_in, rpay, part, mesh=mesh, axis=axis,
         capacity_factor=right_capacity_factor, stable=True,
         overlap_exchange=overlap_exchange,
     )
+    del lwords, lpay, rwords_in, rpay
 
-    D, L = mesh.size, mesh.n_local
-    lcap = int(words[0].shape[0]) // L
-    rcap = int(rwords[0].shape[0]) // L
+    D, L = mesh.size, mesh.per_card
+    lcap = _capacity(words[0], mesh)
+    rcap = _capacity(rwords[0], mesh)
     both = torch.cat([counts, rcounts]).tolist()  # global: every rank alike
     if max(both[:D]) > lcap or max(both[D:]) > rcap:
         raise OverflowError("shuffle capacity exceeded; raise capacity_factor")
     out_cap = max(int(math.ceil(join_capacity_factor * lcap)), 16)
     # the local merge matches on every arriving key plane, the hash too
-    nkw = len(shuffle_words)
-    lsh = _per_shard(list(words) + list(payloads), L)
-    rsh = _per_shard(list(rwords) + list(rpayloads), L)
-    outs, sizes = [], []
-    for s, ls, rs in zip(mesh.shards, lsh, rsh):
-        o, jc, mt = _join_local(ls[:nkw], ls[nkw:], counts[s],
-                                rs[:nkw], rs[nkw:], rcounts[s], out_cap, how)
-        outs.append(o)
-        sizes.append(torch.stack([jc, mt]).to(torch.int64))
-    del lsh, rsh, words, payloads, rwords, rpayloads
+    nkw = (1 if hashed else 0) + nk.n_words
+    cnts = mesh.replicas(counts, rcounts)
+    outs, sizes = [None] * mesh.n_local, [None] * mesh.n_local
+    for c in mesh.cards:
+        with mesh.on(c):
+            lsh = _per_shard([_block(p, c) for p in list(words) + list(payloads)], L)
+            rsh = _per_shard([_block(p, c) for p in list(rwords) + list(rpayloads)], L)
+            for j, (ls, rs) in enumerate(zip(lsh, rsh)):
+                i = c * L + j
+                s = mesh.shards[i]
+                o, jc, mt = _join_local(ls[:nkw], ls[nkw:], cnts[c][0][s],
+                                        rs[:nkw], rs[nkw:], cnts[c][1][s], out_cap, how)
+                outs[i] = o
+                sizes[i] = torch.stack([jc, mt]).to(torch.int64)
+            del lsh, rsh
+    del words, payloads, rwords, rpayloads
     # every shard's (output rows, matches): one all_gather, one host read,
     # so every rank raises the same OverflowError or none does
     got = mesh.read_gathered(sizes, sizes)
@@ -626,17 +742,22 @@ def distributed_join(
             f"capacity {out_cap}; raise join_capacity_factor"
         )
 
-    planes = _dense(outs, got[D:, 0].tolist())
-    del outs
-    cols = _key_columns(on_list, nk, planes[nkw - nk.n_words:nkw])
-    i = nkw + len(payload_words)
-    cols.update(_decode_columns(enc, planes[nkw:i]))
-    right_names = [name + (suffix if name in left.column_names else "")
+    left_names = lefts[0].column_names
+    right_names = [name + (suffix if name in left_names else "")
                    for name, _ in renc]
-    cols.update(_decode_columns(renc, planes[i:i + len(rpayload_words)],
-                                right_names))
-    order = list(left.column_names) + right_names
-    if how == "left":
-        cols["_matched"] = P.sview(planes[-1]) != 0
-        order.append("_matched")
-    return Table({c: cols[c] for c in order}), n_matched
+    order = list(left_names) + right_names
+    tables = []
+    for c in mesh.cards:
+        mine = slice(c * L, (c + 1) * L)
+        with mesh.on(c):
+            planes = _dense(outs[mine], got[D:, 0][mine].tolist())
+            outs[mine] = [None] * L
+            cols = _key_columns(on_list, lencs[c][1], planes[nkw - nk.n_words:nkw])
+            i = nkw + len(payload_words)
+            cols.update(_decode_columns(lencs[c][3], planes[nkw:i]))
+            cols.update(_decode_columns(rencs[c][3], planes[i:i + len(rpayload_words)],
+                                        right_names))
+            if how == "left":
+                cols["_matched"] = P.sview(planes[-1]) != 0
+        tables.append(Table({n: cols[n] for n in order + (["_matched"] if how == "left" else [])}))
+    return _per_card(tables), n_matched

@@ -29,9 +29,36 @@ The collectives reduce over every shard of the mesh (the shuffle's body
 reduces over its whole partition axis, a tuple of both axes on a 2-axis
 mesh); :meth:`Mesh.groups` names the shards that exchange along one axis
 of a 2-axis mesh.
+
+**Cards.**  In one process a mesh may lie on several cards: ``devices``
+lists K of them (K dividing the shard count), and card c holds the
+contiguous flat shards ``[c * D / K, (c + 1) * D / K)``, so on
+``make_mesh_2d(H, C, devices=...)`` with K = H each host row lies on one
+card, as ``jax.devices()``' process-major order places the reference's.
+``devices=None`` is ``[device]``: one card, today's mesh, on the caller's
+current stream.  With K > 1 each entry is its own card, even where entries
+repeat: on CUDA each holds its own ``torch.cuda.Stream``, held by the mesh,
+and the cards' work is ordered only by events (:meth:`Mesh.call`,
+:meth:`Mesh.on`, the collectives, and the exchange in
+``parallel/remote_dma.py``).  So ``devices=["cuda:0"] * 4`` runs the
+four-card code on one card, four streams at once, and ``["cpu"] * 4`` the
+same grouping through the plain versions: scaffolding for a machine with
+one card, the way 8 shards on one card model 8 chips, not a feature of its
+own.  Per-shard work runs on its card's stream; replicated values (what the
+collectives return, and what is computed from them) live on card 0, the
+mesh's ``device``, on card 0's stream, and a card reads one through its own
+copy (:meth:`Mesh.replicas`), made once per collective.  No step waits on
+the host.  Outputs on K > 1 cards are per card: each output plane (counts
+excepted, which stay one replicated (D,) tensor on card 0) is a list over
+the cards, entry c card c's (L_c * capacity,) block, shard-major, on card
+c; concatenated in card order the blocks are the one-card result, as the
+blocks of the processes are on a mesh over processes.  Ranks that each
+hold several cards are not done: a mesh over processes takes one card a
+rank.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Sequence
 
@@ -45,24 +72,30 @@ _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
 
 
 class Mesh:
-    """``shape`` shards (row-major over ``axis_names``) on one device of
-    each process, spread over the default process group's ranks where it
-    has more than one."""
+    """``shape`` shards (row-major over ``axis_names``) on the cards
+    ``devices`` (default ``[device]``) of each process, spread over the
+    default process group's ranks where it has more than one."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 device: torch.device):
+                 device: torch.device, devices: Sequence | None = None):
         self.shape = tuple(int(x) for x in shape)
         self.axis_names = tuple(axis_names)
         if len(self.shape) != len(self.axis_names) or min(self.shape) < 1:
             raise ValueError(f"bad mesh shape {self.shape} for {self.axis_names}")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.devices = [_resolve(d) for d in ([device] if devices is None else devices)]
+        if not self.devices:
+            raise ValueError("a mesh needs at least one card")
+        self.device = self.devices[0]
         self.size = 1
         for x in self.shape:
             self.size *= x
+        K = len(self.devices)
         self.processes = (dist.is_available() and dist.is_initialized()
                           and dist.get_world_size() > 1)
+        if self.processes and K > 1:
+            raise NotImplementedError(
+                "a mesh over processes takes one card a rank: ranks that each "
+                "hold several cards are not done")
         self.rank, self.world = 0, 1
         self.comm_device = self.device
         if self.processes:
@@ -73,6 +106,122 @@ class Mesh:
             if dist.get_backend() != "nccl":
                 self.comm_device = torch.device("cpu")
         self.n_local = self.size // self.world
+        if self.n_local % K:
+            raise ValueError(f"{self.n_local} shards do not split evenly over {K} cards")
+        #: shards a card holds
+        self.per_card = self.n_local // K
+        #: one stream per card on CUDA with K > 1, else None (the caller's)
+        self.streams = ([torch.cuda.Stream(device=d) for d in self.devices]
+                        if K > 1 and self.device.type == "cuda" else None)
+        self._depth = 0
+
+    @property
+    def cards(self) -> range:
+        return range(len(self.devices))
+
+    def card_of(self, shard: int) -> int:
+        """The card (index into ``devices``) that holds flat shard ``shard``
+        of this process."""
+        return (shard - self.shards.start) // self.per_card
+
+    def device_of(self, shard: int) -> torch.device:
+        return self.devices[self.card_of(shard)]
+
+    def stream_of(self, card: int):
+        """Card ``card``'s stream: its own with K > 1 cards, the caller's
+        current stream with one; None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        if self.streams is None:
+            return torch.cuda.current_stream(self.device)
+        return self.streams[card]
+
+    def on(self, card: int):
+        """A context in which work runs on ``card``'s device and stream."""
+        if self.streams is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.streams[card])
+
+    def each(self):
+        """(local shard index, card) over this process's shards, each
+        yielded inside :meth:`on` of its card."""
+        for c in self.cards:
+            with self.on(c):
+                for i in range(c * self.per_card, (c + 1) * self.per_card):
+                    yield i, c
+
+    @contextlib.contextmanager
+    def call(self):
+        """One call on the mesh: every card's stream first waits for the
+        caller's current stream on its device (the inputs are final), the
+        body runs on card 0's stream, and at the end the caller's current
+        stream on every card's device waits for that card's stream (the
+        outputs are final).  Re-entrant: a call inside a call adds nothing."""
+        if self.streams is None or self._depth:
+            self._depth += 1
+            try:
+                yield
+            finally:
+                self._depth -= 1
+            return
+        for d, s in zip(self.devices, self.streams):
+            s.wait_stream(torch.cuda.current_stream(d))
+        self._depth = 1
+        try:
+            with self.on(0):
+                yield
+        finally:
+            self._depth = 0
+            for d, s in zip(self.devices, self.streams):
+                torch.cuda.current_stream(d).wait_stream(s)
+
+    def _home(self, xs) -> list:
+        """Per-shard values moved to card 0, on card 0's stream, after one
+        event per card: a value on card 0's device is used in place (its
+        block recorded on card 0's stream), one on another device copied
+        there on its card's stream."""
+        if self.streams is None:
+            return list(xs)
+        home = self.streams[0]
+        for s in self.streams[1:]:
+            home.wait_stream(s)
+        out = []
+        for i, x in enumerate(xs):
+            c = i // self.per_card
+            if c == 0:
+                out.append(x)
+            elif x.device == self.device:
+                x.record_stream(home)
+                out.append(x)
+            else:
+                with torch.cuda.stream(self.streams[c]), torch.cuda.stream(home):
+                    out.append(x.to(self.device))
+        return out
+
+    def replicas(self, *xs) -> list[tuple]:
+        """For each card, its own copies of ``xs`` (tensors on card 0, or
+        None), made on its stream after one event of card 0's: entry c of
+        the list is card c's tuple.  One card, or the CPU: the tensors
+        themselves."""
+        if self.streams is None:
+            return [xs] * len(self.devices)
+        home = self.streams[0]
+        out = [xs]
+        for c in self.cards[1:]:
+            s, d = self.streams[c], self.devices[c]
+            s.wait_stream(home)
+            copies = []
+            with torch.cuda.stream(home), torch.cuda.stream(s):
+                for x in xs:
+                    if x is None:
+                        copies.append(None)
+                    elif d == self.device:
+                        x.record_stream(s)
+                        copies.append(x.clone())
+                    else:
+                        copies.append(x.to(d))
+            out.append(tuple(copies))
+        return out
 
     @property
     def shards(self) -> range:
@@ -105,17 +254,20 @@ class Mesh:
         ]
 
     def _stack(self, xs) -> torch.Tensor:
+        """The shards' values stacked on card 0 (call inside :meth:`on`
+        of card 0)."""
         if len(xs) != self.n_local:
             raise ValueError(f"{len(xs)} values for {self.n_local} shards")
         if self.processes:
             for x in xs:
                 if x.dtype != torch.int64:
                     raise TypeError(f"collectives carry int64, got {x.dtype}")
-        return torch.stack(list(xs))
+        return torch.stack(self._home(xs))
 
     def _reduce(self, xs, op: str) -> torch.Tensor:
-        x = self._stack(xs)
-        x = x.sum(0) if op == "sum" else x.amin(0) if op == "min" else x.amax(0)
+        with self.on(0):
+            x = self._stack(xs)
+            x = x.sum(0) if op == "sum" else x.amin(0) if op == "min" else x.amax(0)
         if not self.processes:
             return x
         y = x.to(self.comm_device)
@@ -132,8 +284,9 @@ class Mesh:
         return self._reduce(xs, "max")
 
     def all_gather(self, xs) -> torch.Tensor:
-        """(D, ...) with shard s's value in row s."""
-        x = self._stack(xs)
+        """(D, ...) with shard s's value in row s, on card 0."""
+        with self.on(0):
+            x = self._stack(xs)
         if not self.processes:
             return x
         return self.gather_blocks(x).flatten(0, 1)
@@ -152,7 +305,9 @@ class Mesh:
         values, (L, ...), read on the host in one copy (``TRANSPORT``
         counts it in ``host_reads``).  Under NCCL this is the one host wait
         of a cross-process exchange."""
-        both = torch.cat([self.all_gather(xs), torch.stack(list(local))])
+        gathered = self.all_gather(xs)
+        with self.on(0):
+            both = torch.cat([gathered, torch.stack(self._home(local))])
         TRANSPORT["host_reads"] += 1
         return both.cpu().numpy()
 
@@ -214,25 +369,41 @@ def init_distributed(*, backend: str | None = None, device="cuda",
         world_size=-1 if world_size is None else world_size, **kwargs)
 
 
-def _device(device) -> torch.device:
+def _resolve(device) -> torch.device:
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("make_mesh: CUDA is not available (pass device='cpu')")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
-def make_mesh(n_shards: int, axis: str = "shard", *, device="cuda") -> Mesh:
-    """A 1-axis mesh of ``n_shards`` shards on ``device``, spread over the
-    processes of :func:`init_distributed` where there are several."""
-    return Mesh((n_shards,), (axis,), _device(device))
+def _devices(device, devices):
+    """Checks ``devices`` (or ``[device]`` where it is None): one type, CPU
+    or CUDA, and CUDA present.  Returns ``devices`` as torch devices, or
+    None."""
+    devs = [torch.device(d) for d in ([device] if devices is None else devices)]
+    types = {d.type for d in devs}
+    if len(types) != 1 or not types <= {"cpu", "cuda"}:
+        raise ValueError(f"a mesh's cards are all CUDA or all CPU, got {devs}")
+    if "cuda" in types and not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: CUDA is not available (pass device='cpu')")
+    return None if devices is None else devs
+
+
+def make_mesh(n_shards: int, axis: str = "shard", *, device="cuda",
+              devices=None) -> Mesh:
+    """A 1-axis mesh of ``n_shards`` shards on ``device``, or on the cards
+    ``devices`` (a block of shards each), spread over the processes of
+    :func:`init_distributed` where there are several."""
+    devs = _devices(device, devices)
+    return Mesh((n_shards,), (axis,), torch.device(device), devs)
 
 
 def make_mesh_2d(n_hosts: int, chips_per_host: int,
                  axes: tuple[str, str] = ("host", "chip"), *,
-                 device="cuda") -> Mesh:
+                 device="cuda", devices=None) -> Mesh:
     """Two-axis mesh: ``axes[0]`` spans hosts, ``axes[1]`` the chips of a
     host; flat shard ``h * chips_per_host + c`` is (h, c).  Over
-    ``n_hosts`` processes each holds one host row.  A process's shards lie
-    on one ``device``: shards on several cards of one process need
-    peer-mapped exchange buffers, which are later work."""
-    return Mesh((n_hosts, chips_per_host), axes, _device(device))
+    ``n_hosts`` processes each holds one host row; with ``devices`` of
+    ``n_hosts`` cards each card holds one."""
+    devs = _devices(device, devices)
+    return Mesh((n_hosts, chips_per_host), axes, torch.device(device), devs)

@@ -26,11 +26,28 @@ Within one process S == R (every shard sends to every shard).  On a mesh
 that spans processes (``parallel/shuffle.py``) the receivers are this
 process's shards and the senders every shard of the group: a remote
 sender's plane is its block of the buffer that ``torch.distributed``
-delivered, its offsets the running sums of its segments.  All planes of a
-call lie on one device: stream order stands in for the reference's barrier
-(the collective that filled a remote block is ordered before the launch on
-the current stream).  Shards on several cards of one process (peer-mapped
-destination pointers, events in place of the barrier) are later work.
+delivered, its offsets the running sums of its segments.  All planes of
+such a call lie on one device: stream order stands in for the reference's
+barrier (the collective that filled a remote block is ordered before the
+launch on the current stream).
+
+A group of shards on several cards of one process exchanges through
+:func:`remote_dma_exchange_cards`, the form the reference's kernel has (a
+transfer between chips): one launch per receiving card, on that card's
+stream, whose receivers are that card's shards and whose senders are every
+shard of the group, read through their device pointers (peer access,
+:func:`enable_peer`, once per pair of cards); its offset and size tables
+are the (S, R_c) column block of the (S, R) matrix, which lands every
+segment where the square exchange does (each receiver's column is whole).
+Events stand in for the reference's allocate -> barrier -> send prologue
+and its drain (rdst_tpu/parallel/remote_dma.py:34-37): each receiving
+card's stream first waits on one event of every sending card's stream,
+recorded once its planes and sizes are final, and after the launches every
+sending card's stream waits on every receiving card's completion event, so
+no sender plane is freed or overwritten while a peer still reads it
+(PyTorch's caching allocator reuses a block in its own stream's order and
+knows nothing of a read from another card).  Exchange data never moves
+between cards any other way: no ``.to()``, ``copy_`` or collective.
 
 Planes are u32.  Any other dtype raises ``TypeError`` before anything is
 allocated or launched: the reference's docstring promised a fallback for
@@ -50,6 +67,7 @@ from rdst_tpu_torch import _planes as P
 __all__ = [
     "PAD_WORD", "EXCHANGE", "Layout", "exchange_layout", "remote_dma_exchange",
     "remote_dma_exchange_plain", "remote_dma_exchange_cuda", "launch_all",
+    "remote_dma_exchange_cards", "remote_dma_exchange_cards_plain", "enable_peer",
 ]
 
 PAD_WORD = 0xFFFFFFFF
@@ -217,3 +235,125 @@ def remote_dma_exchange(
     if dev != "cpu":
         raise ValueError(f"no exchange kernel for device {planes[0][0].device}")
     return remote_dma_exchange_plain(planes, input_offsets, send_sizes, capacity)
+
+
+_PEERS: set = set()  # (reading card, owning card) pairs mapped in this process
+
+
+def enable_peer(device: torch.device, peer: torch.device) -> None:
+    """Let kernels on ``device`` read ``peer``'s memory
+    (``cudaDeviceEnablePeerAccess``, once per pair and process); raises
+    ``RuntimeError`` where the pair cannot map.  There is no staged copy in
+    its place."""
+    key = (device.index, peer.index)
+    if key in _PEERS or device == peer:
+        return
+    lib = _build.library()
+    fn = lib.rdst_enable_peer
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    err = fn(device.index, peer.index)
+    if err != 0:
+        raise RuntimeError(
+            f"remote_exchange: {device} cannot read {peer}'s memory (peer "
+            f"access: CUDA error {err}: {lib.rdst_error_string(err).decode()})")
+    _PEERS.add(key)
+
+
+def _blocks(recv_cards) -> list[tuple[int, list[int]]]:
+    """(card, its receiver columns) in card order; each card's columns are
+    one contiguous run."""
+    out = []
+    for d, c in enumerate(recv_cards):
+        if out and out[-1][0] == c:
+            out[-1][1].append(d)
+        elif any(c == x for x, _ in out):
+            raise ValueError(f"card {c}'s receivers are not contiguous: {list(recv_cards)}")
+        else:
+            out.append((c, [d]))
+    return out
+
+
+def remote_dma_exchange_cards_plain(planes, input_offsets, send_sizes, capacity,
+                                    recv_cards, devices):
+    """Plain version of :func:`remote_dma_exchange_cards`: for each
+    receiving card, :func:`remote_dma_exchange_plain` on its (S, R_c)
+    column block, its outputs then moved to ``devices[card]``."""
+    out = []
+    for c, cols in _blocks(recv_cards):
+        block = slice(cols[0], cols[-1] + 1)
+        recv, demand, arrived = remote_dma_exchange_plain(
+            planes, [o[block] for o in input_offsets], [z[block] for z in send_sizes],
+            capacity)
+        out.append(([r.to(devices[c]) for r in recv], demand.to(devices[c]),
+                    arrived.to(devices[c])))
+    return out
+
+
+def _drain(streams, send_cards, done) -> None:
+    """Every sending card's stream waits on every receiving card's
+    completion event (``done``: card -> event)."""
+    for sc in sorted(set(send_cards)):
+        for rc, ev in done.items():
+            if rc != sc:
+                streams[sc].wait_event(ev)
+
+
+def remote_dma_exchange_cards(planes, input_offsets, send_sizes, capacity,
+                              send_cards, recv_cards, devices, streams=None):
+    """B6 between the cards of one process: sender s's planes, offsets and
+    sizes lie on card ``send_cards[s]`` (made on its stream), receiver d is
+    a shard of card ``recv_cards[d]`` (ascending, each card's receivers
+    contiguous); ``devices[c]`` and ``streams[c]`` are card c's (``streams``
+    None for CPU cards).  Returns, for each receiving card in card order,
+    ``(recv, demand, arrived)`` of its R_c receivers as
+    :func:`remote_dma_exchange_plain` describes, on that card.
+
+    On CUDA: one launch per receiving card on its stream, after that stream
+    waits on one event of each other sending card; then each sending card's
+    stream waits on each other receiving card's completion.  CPU planes run
+    :func:`remote_dma_exchange_cards_plain`."""
+    S, R, k = _check(planes, input_offsets, send_sizes)
+    if len(send_cards) != S or len(recv_cards) != R:
+        raise ValueError("one card per sender and per receiver")
+    if planes[0][0].device.type == "cpu":
+        return remote_dma_exchange_cards_plain(planes, input_offsets, send_sizes,
+                                               capacity, recv_cards, devices)
+    if streams is None:
+        raise ValueError("CUDA cards exchange on their streams: pass streams")
+    for s, ps in enumerate(planes):
+        for p in ps:
+            if p.device != devices[send_cards[s]] or not p.is_contiguous():
+                raise ValueError("a sender's planes must be contiguous, on its card")
+    blocks = _blocks(recv_cards)
+    for c, _ in blocks:  # the peer mappings first: a refusal raises before any launch
+        for sc in set(send_cards):
+            enable_peer(devices[c], devices[sc])
+    ready = {sc: streams[sc].record_event() for sc in sorted(set(send_cards))}
+    out, done = [], {}
+    for c, cols in blocks:
+        dev, st = devices[c], streams[c]
+        for sc, ev in ready.items():
+            if sc != c:
+                st.wait_event(ev)
+        block = slice(cols[0], cols[-1] + 1)  # a view: no copy, no host wait
+        with torch.cuda.stream(st):
+            tabs = []
+            for vecs in (input_offsets, send_sizes):
+                col = []
+                for s, v in enumerate(vecs):
+                    if v.device == dev:
+                        col.append(v[block].to(torch.int64))
+                    else:  # a sender's (R,) vector read on this card
+                        with torch.cuda.stream(streams[send_cards[s]]), \
+                                torch.cuda.stream(st):
+                            col.append(v[block].to(dev, torch.int64))
+                tabs.append(torch.stack(col))
+            recv = [torch.empty(len(cols) * capacity, dtype=torch.uint32, device=dev)
+                    for _ in range(k)]
+            arrived = torch.zeros((k, len(cols)), dtype=torch.int64, device=dev)
+            launch_all(planes, tabs[0], tabs[1], recv, arrived, capacity)
+            out.append((recv, tabs[1].sum(0), arrived))
+        done[c] = st.record_event()
+    _drain(streams, send_cards, done)
+    return out

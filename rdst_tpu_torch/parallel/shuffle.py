@@ -23,6 +23,16 @@ where a demand exceeds the capacity.  On the flat mesh the outputs are the
 exchange's own receive buffers, each shard's sorted rows written back into
 its view.
 
+On a mesh of several cards (``Mesh.devices``) each shard's work runs on
+its card's stream (``Mesh.each``), so the cards sort at once; the values
+the collectives replicate are computed on card 0 and read on each card
+through its own copy (``Mesh.replicas``); an exchange group on one card
+launches B6 once on that card's stream, and a group on several cards
+launches it once per receiving card (``remote_dma_exchange_cards``: peer
+reads, events in place of the barrier).  The flat mesh still writes its
+finished rows back into the receive buffers, card by card, and each output
+plane is the list of the cards' blocks.
+
 A group of shards that lies in more than one process exchanges in four
 steps (:func:`_exchange_across`): an ``all_gather`` of every sender's
 sizes; one host read of that size matrix (with this process's send
@@ -58,7 +68,9 @@ from rdst_tpu_torch import config
 from rdst_tpu_torch.ops.fused_sort import fused_sort, fused_sort_available
 from rdst_tpu_torch.ops.merge import merge_sorted
 from rdst_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh, make_mesh_2d
-from rdst_tpu_torch.parallel.remote_dma import PAD_WORD, remote_dma_exchange
+from rdst_tpu_torch.parallel.remote_dma import (
+    PAD_WORD, remote_dma_exchange, remote_dma_exchange_cards,
+)
 
 __all__ = [
     "distributed_sort", "distributed_sort_auto", "partition_exchange",
@@ -114,11 +126,11 @@ def _window(mins: torch.Tensor, maxs: torch.Tensor):
 def _window_params(keys, mesh: Mesh):
     """Entropy-adaptive window from every shard's key planes (global
     min/max per word through the mesh's collectives)."""
-    lo, hi = [], []
-    for k in keys:
-        ext = [P.widen(w).aminmax() for w in k]
-        lo.append(torch.stack([e.min for e in ext]))
-        hi.append(torch.stack([e.max for e in ext]))
+    lo, hi = [None] * len(keys), [None] * len(keys)
+    for i, _ in mesh.each():
+        ext = [P.widen(w).aminmax() for w in keys[i]]
+        lo[i] = torch.stack([e.min for e in ext])
+        hi[i] = torch.stack([e.max for e in ext])
     return _window(mesh.pmin(lo), mesh.pmax(hi))
 
 
@@ -142,16 +154,17 @@ def _single_key(mesh, keys, edges, hists, n_local):
     :243-265): per word, global min of segment minima == global max of
     segment maxima.  A shard's segment minimum is its bucket's first row,
     its maximum the last (PAD_WORD / 0 for empty buckets)."""
-    per_shard = []
-    for k, e, h in zip(keys, edges, hists):
+    per_shard = [None] * len(keys)
+    for i, _ in mesh.each():
+        e = edges[i]
         first = torch.clamp(e[:-1], 0, n_local - 1)
         last = torch.clamp(e[1:] - 1, 0, n_local - 1)
-        nonempty = h > 0
-        per_shard.append([
+        nonempty = hists[i] > 0
+        per_shard[i] = [
             (torch.where(nonempty, P.widen(P.take(w, first)), PAD_WORD),
              torch.where(nonempty, P.widen(P.take(w, last)), 0))
-            for w in k
-        ])
+            for w in keys[i]
+        ]
     uniform = None
     for wi in range(len(keys[0])):
         gmin = mesh.pmin([x[wi][0] for x in per_shard])
@@ -164,24 +177,32 @@ def _single_key(mesh, keys, edges, hists, n_local):
 def _shard_body(mesh, n_keys, capacity, stage1_cap, stable, split_uniform,
                 return_partition, overlap, refine_levels, shards):
     """The shard_map body of the JAX package, in lockstep over this
-    process's shards.  ``shards[i]``: shard ``mesh.shards[i]``'s word and
-    payload planes.  Returns (output planes, counts, partition or None)."""
+    process's shards, each shard's work on its card's stream and the
+    replicated values on card 0's (each card reading its own copies,
+    :meth:`Mesh.replicas`).  ``shards[i]``: shard ``mesh.shards[i]``'s word
+    and payload planes.  Returns (output planes, counts, partition or
+    None)."""
     D = mesh.size
+    L = len(shards)
     dev = mesh.device
     n_local = int(shards[0][0].shape[0])
     R = N_BUCKETS
 
-    # 1. local sort by the full key (payloads ride along)
-    sorted_all = [_local_sort(p, n_keys, stable) for p in shards]
+    # 1. local sort by the full key (payloads ride along), the cards at once
+    sorted_all = [None] * L
+    for i, _ in mesh.each():
+        sorted_all[i] = _local_sort(shards[i], n_keys, stable)
     keys = [p[:n_keys] for p in sorted_all]
-    gmins, wshifts, wbits = _window_params(keys, mesh)
+    window = mesh.replicas(*_window_params(keys, mesh))
 
     # 2. per-shard histograms by searchsorted over the sorted bucket ids
-    ar = torch.arange(R + 1, dtype=torch.int32, device=dev)
-    edges = []
-    for k in keys:
-        edges.append(torch.searchsorted(_apply_window(k, gmins, wshifts, wbits), ar))
-    hists = [e[1:] - e[:-1] for e in edges]
+    edges, hists, ars = [None] * L, [None] * L, {}
+    for i, c in mesh.each():
+        if c not in ars:
+            ars[c] = torch.arange(R + 1, dtype=torch.int32, device=mesh.devices[c])
+        edges[i] = torch.searchsorted(_apply_window(keys[i], *window[c]), ars[c])
+        hists[i] = edges[i][1:] - edges[i][:-1]
+    hist_matrix = None
     if split_uniform:
         hist_matrix = mesh.all_gather(hists)  # (D, R)
         global_hist = hist_matrix.sum(0)
@@ -200,27 +221,31 @@ def _shard_body(mesh, n_keys, capacity, stage1_cap, stable, split_uniform,
     Rd = (torch.arange(D + 1, dtype=torch.float32, device=dev) * share).to(_I64)
     Rd[D] = total
     atomic_below = (cum_mid[None, :] < Rd[:, None]).to(_I64)
-    take_lt = []
-    for i, s in enumerate(mesh.shards):
+    rep = mesh.replicas(hist_matrix, uniform, bstart, Rd, atomic_below)
+    take_lt = [None] * L
+    for i, c in mesh.each():
+        hm, uni, bs, rd_c, below = rep[c]
         c_me = hists[i][None, :]
-        take = atomic_below * c_me
+        take = below * c_me
         if split_uniform:
-            o_me = hist_matrix[:s].sum(0)
-            cut = Rd[:, None] - (bstart + o_me)[None, :]
+            o_me = hm[:mesh.shards[i]].sum(0)
+            cut = rd_c[:, None] - (bs + o_me)[None, :]
             take_uniform = torch.minimum(torch.clamp(cut, min=0), c_me)
-            take = torch.where(uniform[None, :], take_uniform, take)
-        take_lt.append(take)
-    extra = [torch.zeros(D + 1, dtype=_I64, device=dev)] * len(shards)
+            take = torch.where(uni[None, :], take_uniform, take)
+        take_lt[i] = take
+    extra = None
     if refine_levels > 0 and split_uniform and not return_partition and D > 1:
         take_lt, extra = _refined_assignment(
             mesh, keys, edges, global_hist, uniform, take_lt, bstart, Rd,
             total, refine_levels, n_local,
         )
-    input_offsets, send_sizes = [], []
-    for t, x in zip(take_lt, extra):
-        boundary = t.sum(1) + x  # (D+1,)
-        send_sizes.append(boundary[1:] - boundary[:-1])
-        input_offsets.append(boundary[:-1])
+    input_offsets, send_sizes = [None] * L, [None] * L
+    for i, _ in mesh.each():
+        boundary = take_lt[i].sum(1)  # (D+1,)
+        if extra is not None:
+            boundary = boundary + extra[i]
+        send_sizes[i] = boundary[1:] - boundary[:-1]
+        input_offsets[i] = boundary[:-1]
     del keys, edges, take_lt, extra
 
     # 4-6. exchange and local finish
@@ -233,7 +258,7 @@ def _shard_body(mesh, n_keys, capacity, stage1_cap, stable, split_uniform,
         # each shard's first bucket, by the atomic rule's comparison
         dev_start = torch.searchsorted(cum_mid, Rd)
         dev_start[D] = R
-        partition = (gmins, wshifts, wbits, dev_start)
+        partition = (*window[0], dev_start)  # card 0's: (gmins, shifts, bits)
     return outs, counts, partition
 
 
@@ -245,36 +270,45 @@ def _refined_assignment(mesh, keys, edges, global_hist, uniform, take_lt,
     buckets by the same two rules.  Returns per-shard (take_lt with the
     chain head's column zeroed, (D+1,) extra boundary counts)."""
     D = mesh.size
+    L = len(keys)
     dev = mesh.device
     R = N_BUCKETS
-    iota = torch.arange(n_local, device=dev)
     riota = torch.arange(R, device=dev)
-    ar = torch.arange(R + 1, dtype=torch.int32, device=dev)
 
     hot = torch.argmax(global_hist)
-    seg_lo = [_at(e, hot) for e in edges]
-    seg_hi = [_at(e, hot + 1) for e in edges]
     base_rank = _at(bstart, hot)
     active = (_at(global_hist, hot) > total // (2 * D)) & ~_at(uniform, hot)
     drop = ((riota == hot) & active)[None, :]
-    take_lt = [torch.where(drop, 0, t) for t in take_lt]
-    extra = [torch.zeros(D + 1, dtype=_I64, device=dev) for _ in keys]
+    rep = mesh.replicas(hot, drop)
+    seg_lo, seg_hi, extra, take_lt = [None] * L, [None] * L, [None] * L, list(take_lt)
+    iotas, ars = {}, {}  # per card
+    for i, c in mesh.each():
+        hot_c, drop_c = rep[c]
+        seg_lo[i] = _at(edges[i], hot_c)
+        seg_hi[i] = _at(edges[i], hot_c + 1)
+        take_lt[i] = torch.where(drop_c, 0, take_lt[i])
+        extra[i] = torch.zeros(D + 1, dtype=_I64, device=mesh.devices[c])
+        if c not in iotas:
+            iotas[c] = torch.arange(n_local, device=mesh.devices[c])
+            ars[c] = torch.arange(R + 1, dtype=torch.int32, device=mesh.devices[c])
     for lvl in range(levels):
         # exact per-word extrema over the chain segment of every shard
-        in_seg = [(iota >= lo) & (iota < hi) for lo, hi in zip(seg_lo, seg_hi)]
-        mins, maxs = [], []
-        for k, m in zip(keys, in_seg):
-            mins.append(torch.stack(
-                [torch.where(m, P.widen(w), PAD_WORD).min() for w in k]))
-            maxs.append(torch.stack(
-                [torch.where(m, P.widen(w), 0).max() for w in k]))
-        rg, rs, rb = _window(mesh.pmin(mins), mesh.pmax(maxs))
-        redges = []
-        for k, lo, hi in zip(keys, seg_lo, seg_hi):
-            rbuck = _apply_window(k, rg, rs, rb)
-            rkey = torch.where(iota < lo, -1, torch.where(iota >= hi, R, rbuck))
-            redges.append(torch.searchsorted(rkey.to(torch.int32), ar))
-        rhists = [e[1:] - e[:-1] for e in redges]
+        mins, maxs = [None] * L, [None] * L
+        for i, c in mesh.each():
+            m = (iotas[c] >= seg_lo[i]) & (iotas[c] < seg_hi[i])
+            mins[i] = torch.stack(
+                [torch.where(m, P.widen(w), PAD_WORD).min() for w in keys[i]])
+            maxs[i] = torch.stack(
+                [torch.where(m, P.widen(w), 0).max() for w in keys[i]])
+        window = mesh.replicas(*_window(mesh.pmin(mins), mesh.pmax(maxs)))
+        redges, rhists = [None] * L, [None] * L
+        for i, c in mesh.each():
+            iota = iotas[c]
+            rbuck = _apply_window(keys[i], *window[c])
+            rkey = torch.where(iota < seg_lo[i], -1,
+                               torch.where(iota >= seg_hi[i], R, rbuck))
+            redges[i] = torch.searchsorted(rkey.to(torch.int32), ars[c])
+            rhists[i] = redges[i][1:] - redges[i][:-1]
         rmatrix = mesh.all_gather(rhists)
         rglobal = rmatrix.sum(0)
         rcum = torch.cumsum(rglobal, 0)
@@ -286,15 +320,17 @@ def _refined_assignment(mesh, keys, edges, global_hist, uniform, take_lt,
         active_next = (active & (_at(rglobal, hot2) > total // (2 * D))
                        & ~_at(runi, hot2) & (lvl < levels - 1))
         drop2 = ((riota == hot2) & active_next)[None, :]
-        for i, s in enumerate(mesh.shards):
+        rep = mesh.replicas(rmatrix, rb_start, runi, atomic2, drop2, active, hot2, Rd)
+        for i, c in mesh.each():
+            rm, rbs, ru, a2, d2, act, h2, rd_c = rep[c]
             rh = rhists[i][None, :]
-            cut2 = Rd[:, None] - (rb_start + rmatrix[:s].sum(0))[None, :]
+            cut2 = rd_c[:, None] - (rbs + rm[:mesh.shards[i]].sum(0))[None, :]
             uni2 = torch.minimum(torch.clamp(cut2, min=0), rh)
-            take2 = torch.where(runi[None, :], uni2, atomic2 * rh)
-            take2 = torch.where(drop2, 0, take2)
-            extra[i] = extra[i] + torch.where(active, take2.sum(1), 0)
-            seg_lo[i] = _at(redges[i], hot2)
-            seg_hi[i] = _at(redges[i], hot2 + 1)
+            take2 = torch.where(ru[None, :], uni2, a2 * rh)
+            take2 = torch.where(d2, 0, take2)
+            extra[i] = extra[i] + torch.where(act, take2.sum(1), 0)
+            seg_lo[i] = _at(redges[i], h2)
+            seg_hi[i] = _at(redges[i], h2 + 1)
         base_rank = _at(rb_start, hot2)
         active = active_next
     return take_lt, extra
@@ -314,7 +350,10 @@ def _exchange_raw(mesh, planes, input_offsets, send_sizes, capacity, groups):
     planes (views of its group's receive buffers, the pad word where
     nothing landed), ``n_valid[i]`` the rows sent to it (its demand, which
     may exceed the capacity), ``bufs`` the receive buffers of each group
-    with a shard here, in group order."""
+    with a shard here, in group order, each plane a tensor, or for a group
+    on several cards a list of its cards' buffers.  A group on one card
+    launches B6 once on its stream; a group on several launches it once
+    per receiving card (``remote_dma_exchange_cards``)."""
     if mesh.spans(groups):
         return _exchange_across(mesh, planes, input_offsets, send_sizes,
                                 capacity, groups)
@@ -325,26 +364,37 @@ def _exchange_raw(mesh, planes, input_offsets, send_sizes, capacity, groups):
     for g in groups:
         if mesh.owner(g[0]) != mesh.rank:
             continue  # another process's group
+        cards = [mesh.card_of(s) for s in g]
         if len(g) == 1:
             # a 1-shard group: the exchange is an identity
             i = g[0] - first
-            tail = capacity - int(planes[i][0].shape[0])
-            recv[i] = [
-                P.cat([a, P.full(tail, PAD_WORD, a.dtype, a.device)])
-                if tail > 0 else a[:capacity].clone()
-                for a in planes[i]
-            ]
-            n_valid[i] = send_sizes[i].sum()
+            with mesh.on(cards[0]):
+                tail = capacity - int(planes[i][0].shape[0])
+                recv[i] = [
+                    P.cat([a, P.full(tail, PAD_WORD, a.dtype, a.device)])
+                    if tail > 0 else a[:capacity].clone()
+                    for a in planes[i]
+                ]
+                n_valid[i] = send_sizes[i].sum()
             bufs.append(recv[i])
             continue
-        rb, demand, _ = remote_dma_exchange(
-            [planes[s - first] for s in g], [input_offsets[s - first] for s in g],
-            [send_sizes[s - first] for s in g], capacity,
-        )
-        for r, s in enumerate(g):
-            recv[s - first] = [b[r * capacity:(r + 1) * capacity] for b in rb]
-            n_valid[s - first] = demand[r]
-        bufs.append(rb)
+        args = ([planes[s - first] for s in g], [input_offsets[s - first] for s in g],
+                [send_sizes[s - first] for s in g], capacity)
+        if len(set(cards)) == 1:
+            with mesh.on(cards[0]):
+                rb, demand, _ = remote_dma_exchange(*args)
+            blocks = [(rb, demand, g)]
+            bufs.append(rb)
+        else:
+            got = remote_dma_exchange_cards(*args, cards, cards, mesh.devices,
+                                            mesh.streams)
+            blocks = [(rb, demand, [s for s in g if mesh.card_of(s) == c])
+                      for (rb, demand, _), c in zip(got, sorted(set(cards)))]
+            bufs.append([[b[0][j] for b in got] for j in range(len(got[0][0]))])
+        for rb, demand, members in blocks:
+            for r, s in enumerate(members):
+                recv[s - first] = [b[r * capacity:(r + 1) * capacity] for b in rb]
+                n_valid[s - first] = demand[r]
     return recv, n_valid, bufs
 
 
@@ -458,15 +508,40 @@ def _pad_pow2(p, cap2):
 def _exchange_once(mesh, planes, n_keys, input_offsets, send_sizes, capacity,
                    stable, groups):
     """One exchange plus each shard's sort of what it received.  Returns
-    (per-shard capacity planes LED by the validity plane, counts, receive
-    buffers)."""
+    (per-shard capacity planes LED by the validity plane, counts, each
+    shard's receive views, receive buffers)."""
     recv, n_valid, bufs = _exchange_raw(
         mesh, planes, input_offsets, send_sizes, capacity, groups)
-    out = []
-    for r, nv in zip(recv, n_valid):
-        v = _validity(nv, capacity, r[0].device)
-        out.append([p[:capacity] for p in _local_sort([v] + r, 1 + n_keys, stable)])
-    return out, n_valid, bufs
+    out = [None] * len(recv)
+    for i, _ in mesh.each():
+        v = _validity(n_valid[i], capacity, recv[i][0].device)
+        out[i] = [p[:capacity] for p in _local_sort([v] + recv[i], 1 + n_keys, stable)]
+    return out, n_valid, recv, bufs
+
+
+def _split_by_sender(mesh, send_sizes, first_phase):
+    """Per-shard (phase-1 sizes, phase-2 sizes) of the overlapped exchange:
+    ``first_phase(s)`` says whether flat shard s sends in phase 1."""
+    sizes1, sizes2 = [None] * len(send_sizes), [None] * len(send_sizes)
+    for i, _ in mesh.each():
+        sz = send_sizes[i]
+        sizes1[i] = sz if first_phase(mesh.shards[i]) else torch.zeros_like(sz)
+        sizes2[i] = sz - sizes1[i]
+    return sizes1, sizes2
+
+
+def _by_card(mesh, per_shard):
+    """Per-shard plane lists -> each plane as the outputs carry it: one
+    tensor of this process's shards, shard-major, on one card; on several,
+    a list of each card's such block."""
+    per_card = []
+    for c in mesh.cards:
+        mine = per_shard[c * mesh.per_card:(c + 1) * mesh.per_card]
+        with mesh.on(c):
+            per_card.append([P.cat([x[j] for x in mine]) for j in range(len(mine[0]))])
+    if len(per_card) == 1:
+        return per_card[0]
+    return [list(blocks) for blocks in zip(*per_card)]
 
 
 def _exchange_and_finish(mesh, sorted_all, n_keys, input_offsets, send_sizes,
@@ -484,33 +559,30 @@ def _exchange_and_finish(mesh, sorted_all, n_keys, input_offsets, send_sizes,
     if overlap and D > 1:
         # two phases split by SENDER half; phase-1 senders all precede
         # phase-2 senders, and the merge's a-side wins ties
-        half = D // 2
-        sizes1 = [sz if s < half else torch.zeros_like(sz)
-                  for s, sz in zip(mesh.shards, send_sizes)]
-        sizes2 = [sz - s1 for sz, s1 in zip(send_sizes, sizes1)]
-        q1, v1, _ = _exchange_once(mesh, sorted_all, n_keys, input_offsets,
-                                   sizes1, capacity, stable, groups)
-        q2, v2, bufs = _exchange_once(mesh, sorted_all, n_keys, input_offsets,
-                                      sizes2, capacity, stable, groups)
+        sizes1, sizes2 = _split_by_sender(mesh, send_sizes, lambda s: s < D // 2)
+        q1, v1, _, _ = _exchange_once(mesh, sorted_all, n_keys, input_offsets,
+                                      sizes1, capacity, stable, groups)
+        q2, v2, recv, bufs = _exchange_once(mesh, sorted_all, n_keys, input_offsets,
+                                            sizes2, capacity, stable, groups)
         sorted_all.clear()
         cap2 = 1 << max(0, (capacity - 1).bit_length())
-        out = bufs[0]
-        for i in range(len(q1)):
+        total = [None] * len(q1)
+        for i, _ in mesh.each():
             merged = merge_sorted(
                 [_pad_pow2(p, cap2) for p in q1[i]],
                 [_pad_pow2(p, cap2) for p in q2[i]], 1 + n_keys, stable=stable,
             )
             q1[i] = q2[i] = None
-            _write_back([b[i * capacity:(i + 1) * capacity] for b in out],
-                        [p[:capacity] for p in merged[1:]])
-        return out, mesh.all_gather([a + b for a, b in zip(v1, v2)])
+            _write_back(recv[i], [p[:capacity] for p in merged[1:]])
+            total[i] = v1[i] + v2[i]
+        return bufs[0], mesh.all_gather(total)
     recv, n_valid, bufs = _exchange_raw(
         mesh, sorted_all, input_offsets, send_sizes, capacity, groups)
     sorted_all.clear()
-    for r, nv in zip(recv, n_valid):
-        v = _validity(nv, capacity, r[0].device)
-        fin = _local_sort([v] + r, 1 + n_keys, stable)
-        _write_back(r, [p[:capacity] for p in fin[1:]])
+    for i, _ in mesh.each():
+        v = _validity(n_valid[i], capacity, recv[i][0].device)
+        fin = _local_sort([v] + recv[i], 1 + n_keys, stable)
+        _write_back(recv[i], [p[:capacity] for p in fin[1:]])
     return bufs[0], mesh.all_gather(n_valid)
 
 
@@ -523,46 +595,47 @@ def _hier_phase(mesh, planes, n_keys, input_offsets, send_sizes, capacity,
     overflowed."""
     host_ax, chip_ax = mesh.axis_names
     H, C = mesh.shape
+    L = len(planes)
     k = len(planes[0])
     n_local = int(planes[0][0].shape[0])
-    dev = mesh.device
-    iota = torch.arange(n_local, device=dev)
-    ex, hs_off, hs_sizes = [], [], []
-    for i, s in enumerate(mesh.shards):
+    ex, hs_off, hs_sizes, iotas = [None] * L, [None] * L, [None] * L, {}
+    for i, c in mesh.each():
+        dev = mesh.devices[c]
+        if c not in iotas:
+            iotas[c] = torch.arange(n_local, device=dev)
         # per-element flat destination, computed once on the source shard
         ends = input_offsets[i] + send_sizes[i]
-        dest = torch.searchsorted(ends, iota, right=True)
-        ex_s = list(planes[i]) + [P.narrow(dest, torch.uint32)]
+        dest = torch.searchsorted(ends, iotas[c], right=True)
+        ex[i] = list(planes[i]) + [P.narrow(dest, torch.uint32)]
         if stable:
-            ex_s.append(P.full(n_local, s, torch.uint32, dev))
-        ex.append(ex_s)
-        hs_sizes.append(send_sizes[i].view(H, C).sum(1))
-        hs_off.append(input_offsets[i].view(H, C)[:, 0])
+            ex[i].append(P.full(n_local, mesh.shards[i], torch.uint32, dev))
+        hs_sizes[i] = send_sizes[i].view(H, C).sum(1)
+        hs_off[i] = input_offsets[i].view(H, C)[:, 0]
 
     # stage 1: one contiguous block per destination host, along the host axis
     p1, n1, _ = _exchange_raw(mesh, ex, hs_off, hs_sizes, stage1_cap,
                               mesh.groups(host_ax))
     del ex
     # stage 2: regroup by destination chip (pads route to C and sort last)
-    routed, off2, sz2 = [], [], []
-    cs = torch.arange(C + 1, device=dev)
-    for i in range(len(p1)):
+    routed, off2, sz2 = [None] * L, [None] * L, [None] * L
+    for i, c in mesh.each():
+        dev = mesh.devices[c]
         valid1 = torch.arange(stage1_cap, device=dev) < n1[i]
         route = torch.where(valid1, P.widen(p1[i][k]) % C, C)
         srt = _local_sort([P.narrow(route, torch.uint32)] + p1[i], 1, True)
         p1[i] = None
-        routed.append(srt[1:])
-        bounds = torch.searchsorted(P.widen(srt[0]), cs)
-        off2.append(bounds[:-1])
-        sz2.append(bounds[1:] - bounds[:-1])
+        routed[i] = srt[1:]
+        bounds = torch.searchsorted(P.widen(srt[0]), torch.arange(C + 1, device=dev))
+        off2[i] = bounds[:-1]
+        sz2[i] = bounds[1:] - bounds[:-1]
     p2, n2, _ = _exchange_raw(mesh, routed, off2, sz2, capacity,
                               mesh.groups(chip_ax))
     del routed
 
-    finished, counts = [], []
-    for i in range(len(p2)):
+    finished, counts = [None] * L, [None] * L
+    for i, c in mesh.each():
         out = p2[i][:k]
-        v = _validity(n2[i], capacity, dev)
+        v = _validity(n2[i], capacity, mesh.devices[c])
         if stable:
             # the source shard follows the keys in compare order
             sort_planes = [v] + out[:n_keys] + [p2[i][k + 1]] + out[n_keys:]
@@ -570,11 +643,9 @@ def _hier_phase(mesh, planes, n_keys, input_offsets, send_sizes, capacity,
         else:
             sort_planes = [v] + out
             nk_sort = 1 + n_keys
-        finished.append([p[:capacity] for p in
-                         _local_sort(sort_planes, nk_sort, stable)])
+        finished[i] = [p[:capacity] for p in _local_sort(sort_planes, nk_sort, stable)]
         p2[i] = None
-        counts.append(torch.where(n1[i] > stage1_cap,
-                                  torch.maximum(n1[i], n2[i]), n2[i]))
+        counts[i] = torch.where(n1[i] > stage1_cap, torch.maximum(n1[i], n2[i]), n2[i])
     return finished, counts
 
 
@@ -585,23 +656,21 @@ def _hier_exchange_and_finish(mesh, planes, n_keys, input_offsets, send_sizes,
     half."""
     H, C = mesh.shape
     if overlap and H > 1:
-        half = H // 2
-        sizes1 = [sz if s // C < half else torch.zeros_like(sz)
-                  for s, sz in zip(mesh.shards, send_sizes)]
-        sizes2 = [sz - s1 for sz, s1 in zip(send_sizes, sizes1)]
+        sizes1, sizes2 = _split_by_sender(mesh, send_sizes, lambda s: s // C < H // 2)
         q1, v1 = _hier_phase(mesh, planes, n_keys, input_offsets, sizes1,
                              capacity, stage1_cap, stable)
         q2, v2 = _hier_phase(mesh, planes, n_keys, input_offsets, sizes2,
                              capacity, stage1_cap, stable)
         planes.clear()
         cap2 = 1 << max(0, (capacity - 1).bit_length())
-        per_shard = []
-        for a, b in zip(q1, q2):
-            merged = merge_sorted([_pad_pow2(p, cap2) for p in a],
-                                  [_pad_pow2(p, cap2) for p in b], 1 + n_keys,
+        per_shard, total = [None] * len(q1), [None] * len(q1)
+        for i, _ in mesh.each():
+            merged = merge_sorted([_pad_pow2(p, cap2) for p in q1[i]],
+                                  [_pad_pow2(p, cap2) for p in q2[i]], 1 + n_keys,
                                   stable=stable)
-            per_shard.append([p[:capacity] for p in merged[1:]])
-        counts = mesh.all_gather([a + b for a, b in zip(v1, v2)])
+            per_shard[i] = [p[:capacity] for p in merged[1:]]
+            total[i] = v1[i] + v2[i]
+        counts = mesh.all_gather(total)
     else:
         q, v = _hier_phase(mesh, planes, n_keys, input_offsets, send_sizes,
                            capacity, stage1_cap, stable)
@@ -610,8 +679,7 @@ def _hier_exchange_and_finish(mesh, planes, n_keys, input_offsets, send_sizes,
         counts = mesh.all_gather(v)
     if stable:
         per_shard = [x[:n_keys] + x[n_keys + 1:] for x in per_shard]
-    outs = [P.cat([x[j] for x in per_shard]) for j in range(len(per_shard[0]))]
-    return outs, counts
+    return _by_card(mesh, per_shard), counts
 
 
 # ---------------------------------------------------------------------------
@@ -628,41 +696,78 @@ def _check_axis(mesh: Mesh, axis):
 
 
 def _to_planes(words, payloads, mesh: Mesh):
-    """Planes on the mesh's device, as u32 (4-byte payloads viewed), and
-    the payloads' dtypes to restore."""
-    def t(a):
-        x = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-        return x.to(mesh.device).contiguous()
+    """Every card's rows of each plane, on that card, as u32 (4-byte
+    payloads viewed), and the payloads' dtypes to restore.  A plane is a
+    tensor or numpy array of this process's rows, split over the cards in
+    order, or (on several cards) the outputs' form: a list of each card's
+    rows.  Rows that lie elsewhere are copied to their card on its
+    stream."""
+    K = len(mesh.devices)
 
-    ws = [t(w) for w in words]
-    ps = [t(p) for p in payloads]
+    def blocks(a):
+        if isinstance(a, (list, tuple)):
+            if len(a) != K:
+                raise ValueError(f"{len(a)} blocks of a plane for {K} cards")
+            parts = list(a)
+        else:
+            x = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+            n = int(x.shape[0])
+            if n % mesh.n_local:
+                raise ValueError(f"length {n} not divisible by the "
+                                 f"{mesh.n_local} shards of this process")
+            parts = [x[c * (n // K):(c + 1) * (n // K)] for c in range(K)]
+        out = []
+        for c, b in enumerate(parts):
+            if not isinstance(b, torch.Tensor):
+                b = torch.from_numpy(np.ascontiguousarray(b))
+            with mesh.on(c):
+                out.append(b.to(mesh.devices[c]).contiguous())
+        return out
+
+    ws = [blocks(w) for w in words]
+    ps = [blocks(p) for p in payloads]
     for w in ws:
-        if w.dtype != torch.uint32:
-            raise TypeError(f"key words must be uint32 planes, got {w.dtype}")
+        if w[0].dtype != torch.uint32:
+            raise TypeError(f"key words must be uint32 planes, got {w[0].dtype}")
     for p in ps:
-        if p.dtype.itemsize != 4 or p.dtype.is_complex:
-            raise TypeError(f"payloads must be 4-byte planes, got {p.dtype}")
-    return ws + [p.view(torch.uint32) for p in ps], [p.dtype for p in ps]
+        if p[0].dtype.itemsize != 4 or p[0].dtype.is_complex:
+            raise TypeError(f"payloads must be 4-byte planes, got {p[0].dtype}")
+    planes = ws + [[b.view(torch.uint32) for b in p] for p in ps]
+    return [[p[c] for p in planes] for c in range(K)], [p[0].dtype for p in ps]
 
 
-def _shard(planes, mesh: Mesh):
+def _shard(cards, mesh: Mesh):
     """This process's shards of the rows it holds (all rows in one process,
-    its own ``L * n_local`` on a mesh over processes) and the global row
-    count."""
+    its own ``L * n_local`` on a mesh over processes), from each card's
+    planes (``cards[c]``), and the global row count."""
     L = mesh.n_local
-    n = int(planes[0].shape[0])
-    if any(int(p.shape[0]) != n for p in planes):
+    n = sum(int(ps[0].shape[0]) for ps in cards)
+    if any(int(p.shape[0]) != int(ps[0].shape[0]) for ps in cards for p in ps):
         raise ValueError("every plane must have the same length")
     if n % L != 0:
         raise ValueError(f"length {n} not divisible by the {L} shards of this process")
     n_local = n // L
-    return ([[p[i * n_local:(i + 1) * n_local] for p in planes] for i in range(L)],
-            n_local * mesh.size)
+    for c, ps in enumerate(cards):
+        if int(ps[0].shape[0]) != mesh.per_card * n_local:
+            raise ValueError(f"card {c} holds {int(ps[0].shape[0])} rows, not "
+                             f"{mesh.per_card} shards of {n_local}")
+    return ([[p[j * n_local:(j + 1) * n_local] for p in ps]
+             for ps in cards for j in range(mesh.per_card)], n_local * mesh.size)
 
 
 def _split(outs, n_words, pay_dtypes):
+    def view(p, dt):
+        return [b.view(dt) for b in p] if isinstance(p, list) else p.view(dt)
+
     return (list(outs[:n_words]),
-            [p.view(dt) for p, dt in zip(outs[n_words:], pay_dtypes)])
+            [view(p, dt) for p, dt in zip(outs[n_words:], pay_dtypes)])
+
+
+def _capacity(plane, mesh: Mesh) -> int:
+    """Rows a shard holds in an output plane (a tensor, or a per-card
+    list)."""
+    first = plane[0] if isinstance(plane, list) else plane
+    return int(first.shape[0]) // mesh.per_card
 
 
 def _stage1_cap(capacity: int) -> int:
@@ -692,7 +797,11 @@ def distributed_sort(
     counts[d])``, their concatenation in shard order the global order.  On
     a mesh over processes each process passes its own shards' rows (``L *
     n_local``, L = ``len(mesh.shards)``) and gets their planes, (L *
-    capacity,), with the global (D,) counts.
+    capacity,), with the global (D,) counts.  On a mesh of K > 1 cards each
+    output plane is a list of K blocks, card c's (L_c * capacity,) on card
+    c (concatenated, the one-card plane); ``counts`` stays one tensor on
+    card 0.  A plane in may be such a list, or one tensor split over the
+    cards.
 
     ``split_uniform=False`` keeps every bucket on one shard;
     ``return_partition=True`` appends the partition state (gmins, shifts,
@@ -703,15 +812,16 @@ def distributed_sort(
     exchange is always the exact ragged layout)."""
     del use_ragged
     _check_axis(mesh, axis)
-    planes, pay_dtypes = _to_planes(words, payloads, mesh)
-    shards, n = _shard(planes, mesh)
-    del planes
-    capacity = max(int(np.ceil(capacity_factor * (n // mesh.size))), 16)
-    outs, counts, partition = _shard_body(
-        mesh, len(words), capacity, _stage1_cap(capacity), stable,
-        split_uniform, return_partition, overlap_exchange,
-        config.shuffle_refine_levels, shards,
-    )
+    with mesh.call():
+        planes, pay_dtypes = _to_planes(words, payloads, mesh)
+        shards, n = _shard(planes, mesh)
+        del planes
+        capacity = max(int(np.ceil(capacity_factor * (n // mesh.size))), 16)
+        outs, counts, partition = _shard_body(
+            mesh, len(words), capacity, _stage1_cap(capacity), stable,
+            split_uniform, return_partition, overlap_exchange,
+            config.shuffle_refine_levels, shards,
+        )
     w, p = _split(outs, len(words), pay_dtypes)
     if return_partition:
         return w, p, counts, partition
@@ -722,19 +832,21 @@ def _partition_body(mesh, n_keys, capacity, stage1_cap, stable, overlap,
                     partition, shards):
     """Route rows by a precomputed partition (shuffle.py
     ``_partition_body``)."""
-    gmins, wshifts, wbits, dev_start = partition
-    sorted_all, offs, sizes = [], [], []
-    for planes in shards:
-        bucket = _apply_window(planes[:n_keys], gmins, wshifts, wbits)
+    rep = mesh.replicas(*partition)  # gmins, shifts, bits, dev_start
+    L = len(shards)
+    sorted_all, offs, sizes = [None] * L, [None] * L, [None] * L
+    for i, c in mesh.each():
+        planes = shards[i]
+        bucket = _apply_window(planes[:n_keys], *rep[c][:3])
         # sort by (bucket, key): segments must be bucket-contiguous even
         # where a foreign window's saturation breaks key order.  The signed
         # bucket leads as a biased u32 (same order as int32).
         lead = P.narrow(bucket.to(_I64) + (1 << 31), torch.uint32)
         srt = _local_sort([lead] + list(planes), 1 + n_keys, stable)
-        boundary = torch.searchsorted(P.widen(srt[0]) - (1 << 31), dev_start)
-        sorted_all.append(srt[1:])
-        sizes.append(boundary[1:] - boundary[:-1])
-        offs.append(boundary[:-1])
+        boundary = torch.searchsorted(P.widen(srt[0]) - (1 << 31), rep[c][3])
+        sorted_all[i] = srt[1:]
+        sizes[i] = boundary[1:] - boundary[:-1]
+        offs[i] = boundary[:-1]
     return _exchange_and_finish(mesh, sorted_all, n_keys, offs, sizes,
                                 capacity, stable, overlap, stage1_cap)
 
@@ -759,23 +871,24 @@ def partition_exchange(
     return convention as :func:`distributed_sort`."""
     del use_ragged
     _check_axis(mesh, axis)
-    planes, pay_dtypes = _to_planes(words, payloads, mesh)
-    shards, n = _shard(planes, mesh)
-    del planes
-    capacity = int(np.ceil(capacity_factor * (n // mesh.size)))
-    if n <= config.replicate_capacity_max:
-        capacity = max(capacity, n)
-    capacity = max(capacity, 16)
-    part = tuple(
-        torch.as_tensor(np.asarray(x).astype(np.int64)
-                        if not isinstance(x, torch.Tensor) else x)
-        .to(mesh.device, _I64)
-        for x in partition
-    )
-    outs, counts = _partition_body(
-        mesh, len(words), capacity, _stage1_cap(capacity), stable,
-        overlap_exchange, part, shards,
-    )
+    with mesh.call():
+        planes, pay_dtypes = _to_planes(words, payloads, mesh)
+        shards, n = _shard(planes, mesh)
+        del planes
+        capacity = int(np.ceil(capacity_factor * (n // mesh.size)))
+        if n <= config.replicate_capacity_max:
+            capacity = max(capacity, n)
+        capacity = max(capacity, 16)
+        part = tuple(
+            torch.as_tensor(np.asarray(x).astype(np.int64)
+                            if not isinstance(x, torch.Tensor) else x)
+            .to(mesh.device, _I64)
+            for x in partition
+        )
+        outs, counts = _partition_body(
+            mesh, len(words), capacity, _stage1_cap(capacity), stable,
+            overlap_exchange, part, shards,
+        )
     w, p = _split(outs, len(words), pay_dtypes)
     return w, p, counts
 
@@ -797,7 +910,7 @@ def distributed_sort_auto(
         out = distributed_sort(words, payloads, mesh=mesh, capacity_factor=f,
                                **kwargs)
         counts = out[2].cpu().numpy()  # global: every rank decides alike
-        cap = int(out[0][0].shape[0]) // mesh.n_local
+        cap = _capacity(out[0][0], mesh)
         if int(counts.max(initial=0)) <= cap:
             return out
         if f >= max_capacity_factor:
@@ -815,7 +928,8 @@ def gather_valid(planes: Sequence, counts, *, mesh: Mesh | None = None
 
     Pass the ``mesh`` of a call over processes: ``planes`` are then this
     process's shards and every rank gets the whole global order (each
-    rank's valid rows, gathered after the counts)."""
+    rank's valid rows, gathered after the counts).  A plane of a mesh on
+    several cards is the list of its cards' blocks."""
     if isinstance(counts, torch.Tensor):
         counts = counts.cpu().numpy()
     counts = np.asarray(counts)
@@ -824,7 +938,9 @@ def gather_valid(planes: Sequence, counts, *, mesh: Mesh | None = None
     mine = counts[first:first + L]
     out = []
     for p in planes:
-        p = (p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p))
+        blocks = p if isinstance(p, list) else [p]
+        p = np.concatenate([b.cpu().numpy() if isinstance(b, torch.Tensor)
+                            else np.asarray(b) for b in blocks])
         p = p.reshape(L, -1)
         cap = p.shape[1]
         if (counts > cap).any():

@@ -10,13 +10,17 @@ the efficiency against D = 1; then the 2-axis (2, 4) exchange of
 ``torch.cuda.synchronize()``, and the last call's output is checked against
 ``torch.sort`` of its input.
 
-A mesh of this process holds all its shards on ONE device: on one card the
-D shards share the card, so ``weak_scaling_efficiency_vs_D1`` measures what
-the mesh costs a shard, not scaling over cards.  Several cards in one
-process, and ranks on one card each, are not run here (NCCL refuses two
-ranks on one card).
+By default a mesh holds all its shards on ONE device: on one card the D
+shards share the card, so ``weak_scaling_efficiency_vs_D1`` measures what
+the mesh costs a shard, not scaling over cards.  ``--cards K`` spreads each
+mesh over min(D, K) card entries (``make_mesh(D, devices=...)``), as the
+reference's ``make_mesh(D)`` takes one device a shard: the machine's cards
+in turn, an entry repeating a card where K exceeds them (on one card, K
+streams of it); on the CPU, K CPU entries.  Ranks on one card each are not
+run here (NCCL refuses two ranks on one card).
 
     python scripts/torch_bench_mesh.py --per-device 16777216   # on the card
+    python scripts/torch_bench_mesh.py --per-device 16777216 --cards 8
     python scripts/torch_bench_mesh.py --device cpu --per-device 4096
 
 Prints one JSON line per mesh (bench_mesh.py's fields).
@@ -41,12 +45,15 @@ LADDER = (1, 2, 4, 8)
 
 
 def valid_rows(planes, counts):
-    """Each shard's valid rows, concatenated in shard order, on the device."""
+    """Each shard's valid rows, concatenated in shard order, on the device
+    of the counts (a per-card plane's blocks joined there first)."""
     c = counts.cpu().tolist()
     if any(k < 0 for k in c):
         raise SystemExit(f"negative counts {c}")
     out = []
     for p in planes:
+        if isinstance(p, list):
+            p = P.cat([b.to(counts.device) for b in p])
         cap = p.shape[0] // len(c)
         if max(c) > cap:
             raise SystemExit(f"a shard received {max(c)} rows > capacity {cap}")
@@ -61,7 +68,8 @@ def bench(mesh, axis, words, iters, dev):
         w, _, c = distributed_sort(words, [], mesh=mesh, axis=axis,
                                    capacity_factor=2.0, stable=False)
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            for d in set(mesh.devices):
+                torch.cuda.synchronize(d)
         return w, c
 
     run()
@@ -91,7 +99,17 @@ def main():
     ap.add_argument("--per-device", type=int, default=1 << 20,
                     help="rows a shard")
     ap.add_argument("--iters", type=int, default=4)
+    ap.add_argument("--cards", type=int, default=1,
+                    help="card entries a mesh spreads over (1: one device)")
     args = ap.parse_args()
+    if torch.device(args.device).type == "cuda" and torch.cuda.is_available():
+        entries = [f"cuda:{i % torch.cuda.device_count()}" for i in range(args.cards)]
+    else:
+        entries = [args.device] * args.cards
+
+    def cards(D):
+        """The first min(D, K) entries, or None for one device."""
+        return None if args.cards == 1 else entries[:min(D, args.cards)]
 
     rng = np.random.default_rng(0)
     base = None
@@ -104,7 +122,7 @@ def main():
         ]
 
     for D in LADDER:
-        mesh = make_mesh(D, device=args.device)
+        mesh = make_mesh(D, device=args.device, devices=cards(D))
         n = args.per_device * D
         words = words_of(n, mesh.device)
         rows_s = n / bench(mesh, "shard", words, args.iters, mesh.device)
@@ -116,7 +134,7 @@ def main():
 
     # 2-axis (host x chip) hierarchical exchange: the multi-host code shape
     H, C = 2, 4
-    mesh2 = make_mesh_2d(H, C, device=args.device)
+    mesh2 = make_mesh_2d(H, C, device=args.device, devices=cards(H * C))
     D = H * C
     n = args.per_device * D
     words = words_of(n, mesh2.device)

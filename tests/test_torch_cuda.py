@@ -619,6 +619,130 @@ def test_copartition_and_hot_key_on_the_card(dev):
     _same([t.cpu() for t in rw], cw)
 
 
+def _cat(p):
+    return torch.cat([P.sview(b) for b in p]).view(p[0].dtype) if isinstance(p, list) else p
+
+
+@pytest.mark.parametrize("K,overlap", [(2, False), (4, False), (4, True), (8, True)])
+def test_cards_mesh_on_one_card(dev, monkeypatch, K, overlap):
+    """make_mesh(8, devices=[dev] * K): K streams on the one card.  The
+    shuffle (fused local and finish sorts, B4/B5 when overlapped) is
+    bit-equal to the one-entry mesh, each output plane K blocks on the
+    card, and B6 launches once per receiving card of an exchange."""
+    monkeypatch.setattr(config, "fused_min_elems", 1 << 12)
+    n = 8 * (1 << 14)
+    x, words = _u64_on(dev, n, 31, high=1 << 40)
+    pay = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    kw = dict(stable=True, overlap_exchange=overlap)
+    ref = tpar.distributed_sort(words, [pay], mesh=tpar.make_mesh(8), **kw)
+    before = rd.EXCHANGE.launches
+    got = tpar.distributed_sort(words, [pay], mesh=tpar.make_mesh(8, devices=[dev] * K),
+                                **kw)
+    torch.cuda.synchronize()
+    assert rd.EXCHANGE.launches - before == K * (2 if overlap else 1)
+    for a, b in zip(ref[0] + ref[1], got[0] + got[1]):
+        assert len(b) == K and all(x.device == dev for x in b)
+        _same([_cat(b)], [a])
+    assert torch.equal(ref[2], got[2])
+    hi, lo, p = tpar.gather_valid(got[0] + got[1], got[2])
+    order = np.argsort(x, kind="stable")
+    np.testing.assert_array_equal((hi.astype(np.uint64) << np.uint64(32)) | lo, x[order])
+
+
+@pytest.mark.parametrize("K", [2, 4, 8])
+def test_cards_mesh_2d_and_tables_on_one_card(dev, K):
+    """make_mesh_2d(2, 4, devices=[dev] * K) and the four table operators
+    on make_mesh(8, devices=[dev] * K): bit-equal to one entry, one Table
+    a card."""
+    from rdst_tpu_torch.table import Table
+
+    n = 8 * 4096
+    x, words = _u64_on(dev, n, 32, high=1 << 20)
+    m1, mk = tpar.make_mesh_2d(2, 4), tpar.make_mesh_2d(2, 4, devices=[dev] * K)
+    ref = tpar.distributed_sort(words, mesh=m1, axis=m1.axis_names, stable=True)
+    got = tpar.distributed_sort(words, mesh=mk, axis=mk.axis_names, stable=True)
+    for a, b in zip(ref[0], got[0]):
+        _same([_cat(b)], [a])
+    assert torch.equal(ref[2], got[2])
+    rng = np.random.default_rng(33)
+    t = Table({"k": torch.from_numpy(rng.integers(0, 500, n).astype(np.int32)).to(dev),
+               "v": torch.from_numpy(rng.integers(0, 9, n).astype(np.int64)).to(dev)})
+    d = Table({"k": torch.arange(512, dtype=torch.int32, device=dev).repeat(16),
+               "w": torch.arange(8192, dtype=torch.int64, device=dev)})
+    one, many = tpar.make_mesh(8), tpar.make_mesh(8, devices=[dev] * K)
+    for fn in (lambda m: tpar.distributed_sort_table(t, "k", mesh=m),
+               lambda m: tpar.distributed_filter(t, t["v"] > 3, mesh=m),
+               lambda m: tpar.distributed_group_aggregate(
+                   t, "k", {"s": ("v", "sum"), "m": ("v", "max")}, mesh=m),
+               lambda m: tpar.distributed_join(t, d, "k", mesh=m, partition="hash",
+                                               join_capacity_factor=24.0)):
+        (rt_, rn), (gt, gn) = fn(one), fn(many)
+        assert len(gt) == K and all(x.device == dev for x in gt)
+        for c in rt_.column_names:
+            assert torch.equal(P.sview(torch.cat([g[c] for g in gt])), P.sview(rt_[c])), c
+        assert (torch.equal(rn, gn) if isinstance(rn, torch.Tensor) else rn == gn)
+
+
+@pytest.mark.parametrize("drain", [True, False])
+def test_cards_exchange_drains_before_senders_reuse(dev, monkeypatch, drain):
+    """Two senders on card 0 of a 4-entry mesh, four receivers on cards 1-3
+    whose launches wait behind a spin on their streams; card 0 overwrites
+    its planes right after the call.  With the drain (every sending card's
+    stream waits on every receiving card's completion) the receive buffers
+    equal the plain version's; without it (patched out) card 0's overwrite
+    lands first and the receivers read it: the test sees a missing wait.
+    The call enqueues without a host wait (sync debug mode "error"), which
+    is also what lets the overwrite overtake the receivers."""
+    mesh = tpar.make_mesh(4, devices=[dev] * 4)
+    S, R, n, cap = 2, 4, 1 << 20, 1 << 19
+    planes = [_planes(dev, n, [torch.uint32] * 2, 40 + s) for s in range(S)]
+    sizes = [torch.full((R,), n // R, dtype=torch.int64, device=dev) for _ in range(S)]
+    offs = [torch.arange(R, device=dev) * (n // R) for _ in range(S)]
+    recv_cards = [1, 1, 2, 3]
+    want = rd.remote_dma_exchange_cards_plain(planes, offs, sizes, cap, recv_cards,
+                                              mesh.devices)
+    if not drain:
+        monkeypatch.setattr(rd, "_drain", lambda *a: None)
+    with mesh.call():
+        for c in (1, 2, 3):
+            with mesh.on(c):
+                torch.cuda._sleep(200_000_000)  # ~0.1 s of spinning
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = rd.remote_dma_exchange_cards(planes, offs, sizes, cap, [0, 0],
+                                               recv_cards, mesh.devices, mesh.streams)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for ps in planes:
+            for p in ps:
+                P.sview(p).fill_(0)  # on card 0's stream, the mesh's current
+    torch.cuda.synchronize()
+    same = all(torch.equal(P.sview(a), P.sview(b))
+               for (gr, _, _), (wr, _, _) in zip(got, want) for a, b in zip(gr, wr))
+    assert same == drain
+
+
+def test_cards_peer_access_between_cards(dev):
+    """Where the machine has two cards: each pair maps (or raises
+    RuntimeError, never a staged copy), and a 2-card flat shuffle is
+    bit-equal to the one-card one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    a, b = torch.device("cuda", 0), torch.device("cuda", 1)
+    if not torch.cuda.can_device_access_peer(a, b):
+        with pytest.raises(RuntimeError):
+            rd.enable_peer(a, b)
+        return
+    rd.enable_peer(a, b)
+    n = 8 * 4096
+    _, words = _u64_on(dev, n, 34)
+    ref = tpar.distributed_sort(words, mesh=tpar.make_mesh(8), stable=True)
+    got = tpar.distributed_sort(words, mesh=tpar.make_mesh(8, devices=[a, b]), stable=True)
+    for x, y in zip(ref[0], got[0]):
+        assert [t.device for t in y] == [a, b]
+        _same([torch.cat([t.cpu() for t in y])], [x.cpu()])
+
+
 def test_kernel_wrappers_raise_on_bad_input(dev):
     p = _planes(dev, 1 << 13, [torch.uint32], 1)
     with pytest.raises(ValueError):

@@ -292,10 +292,53 @@ def _same_table(want, got, what):
         _equal(gt[c], wt[c], f"{what} column {c}")
 
 
+def _joined_steps(steps):
+    """A dryrun on several cards as on one: each per-card plane and table
+    concatenated in card order."""
+    from rdst_tpu_torch.table import Table
+
+    def plane(p):
+        return torch.cat(p) if isinstance(p, list) else p
+
+    def table(t):
+        if not isinstance(t, list):
+            return t
+        return Table({c: torch.cat([x[c] for x in t]) for c in t[0].column_names})
+
+    out = {}
+    for step, v in steps.items():
+        if v is None:
+            out[step] = None
+        elif step in ("sort", "sort_2d"):
+            out[step] = ([plane(p) for p in v[0]], [plane(p) for p in v[1]], v[2])
+        elif step in ("tight", "auto"):
+            out[step] = ([plane(p) for p in v[0]], v[1])
+        else:
+            out[step] = (table(v[0]), v[1])
+    return out
+
+
 @pytest.mark.parametrize("n_devices", [1, 2, 8])
 def test_dryrun_matches_graft_entry(n_devices, monkeypatch):
     want = _jax_steps(_jax_dryrun(n_devices, monkeypatch), n_devices)
     got = tge._dryrun_steps(n_devices, device="cpu")
+    _check_dryrun(want, got, n_devices)
+    assert tge.dryrun_multichip(n_devices, device="cpu") is None
+
+
+def test_dryrun_on_card_entries_matches_graft_entry(monkeypatch):
+    """``devices=["cpu"] * 4``: the reference's one shard a device becomes a
+    block of two shards a card; every step, its per-card outputs joined in
+    card order, is the JAX package's."""
+    want = _jax_steps(_jax_dryrun(8, monkeypatch), 8)
+    got = tge._dryrun_steps(8, device="cpu", devices=["cpu"] * 4)
+    assert isinstance(got["sort"][0][0], list) and len(got["sort"][0][0]) == 4
+    assert isinstance(got["aggregate"][0], list) and len(got["aggregate"][0]) == 4
+    _check_dryrun(want, _joined_steps(got), 8)
+    assert tge.dryrun_multichip(8, device="cpu", devices=["cpu"] * 4) is None
+
+
+def _check_dryrun(want, got, n_devices):
     assert set(got) == set(want) - {None}
     _same_sort(want["sort"], got["sort"], "sort")
     for step in ("aggregate", "join_range", "join_hash"):
@@ -309,7 +352,6 @@ def test_dryrun_matches_graft_entry(n_devices, monkeypatch):
     for step in ("tight", "auto") if got["tight"] is not None else ("auto",):
         (ww, wc), (gw, gc) = want[step], got[step]
         _same_sort((ww, [], wc), (gw, [], gc), step)
-    assert tge.dryrun_multichip(n_devices, device="cpu") is None
 
 
 # -- (e) the card is the default ----------------------------------------------------

@@ -386,6 +386,18 @@ def test_bench_mesh_script(monkeypatch):
     assert all(set(r) == set(t) for r, t in zip(ours, theirs))
 
 
+@pytest.mark.parametrize("cards", [2, 4])
+def test_bench_mesh_script_on_cards(cards):
+    """``--cards K``: each mesh over min(D, K) card entries (the reference's
+    one device a shard), the same rows as on one device, each checked."""
+    args = ["--device", "cpu", "--per-device", "256", "--iters", "1"]
+    one = _rows(_run(["scripts/torch_bench_mesh.py", *args]))
+    many = _rows(_run(["scripts/torch_bench_mesh.py", *args, "--cards", str(cards)]))
+    assert [r["metric"] for r in many] == [r["metric"] for r in one]
+    assert all(set(r) == set(t) and r["devices"] == t["devices"] and r["value"] > 0
+               for r, t in zip(many, one))
+
+
 def test_consumer_fixture():
     out = _run(["fixtures/torch_consumer.py", "--device", "cpu"])
     assert out.strip().splitlines()[-1] == "consumer smoke: OK"

@@ -4,7 +4,7 @@
 ``entry(device="cuda")``      -- one single-card step, the flagship pipeline:
                                  the two-word (u64-equivalent) sort of 2^16
                                  keys.  Returns ``(fn, (hi, lo))``.
-``dryrun_multichip(n_devices, device="cuda")``
+``dryrun_multichip(n_devices, device="cuda", devices=None)``
                               -- one run of the whole distributed sequence on
                                  an ``n_devices``-shard mesh, 512 rows a
                                  shard: the stable overlapped shuffle sort,
@@ -13,7 +13,10 @@
                                  ``n_devices``), and a tight capacity that
                                  may overflow, then ``distributed_sort_auto``.
                                  Every check is an ``assert``.  All shards of
-                                 the mesh lie on ``device``, in this process.
+                                 the mesh lie on ``device``, in this process,
+                                 or on the cards ``devices`` (a block of
+                                 shards each, as the reference puts one
+                                 shard on each of its devices).
 
 Numpy draws the same numbers in the same order as ``__graft_entry__.py``,
 so both packages see the same data.
@@ -22,6 +25,7 @@ so both packages see the same data.
     fn, args = entry()                 # the card; entry("cpu") on the host
     hi_sorted, lo_sorted = fn(*args)
     dryrun_multichip(8)                # 8 shards on one card
+    dryrun_multichip(8, devices=["cuda:0", "cuda:1"])  # 4 shards a card
 """
 import numpy as np
 
@@ -56,7 +60,15 @@ def _np(t):
     return t.cpu().numpy()
 
 
-def _dryrun_steps(n_devices: int, device="cuda") -> dict:
+def _column(t, name):
+    """A table's column, or the per-card tables' column concatenated, on
+    the host."""
+    if isinstance(t, list):
+        return np.concatenate([_np(x[name]) for x in t])
+    return _np(t[name])
+
+
+def _dryrun_steps(n_devices: int, device="cuda", devices=None) -> dict:
     """:func:`dryrun_multichip`'s sequence; returns each step's outputs by
     name: ``sort`` (words, payloads, counts), ``aggregate`` (table, group
     count), ``filter`` (table, counts), ``join_range`` and ``join_hash``
@@ -76,7 +88,7 @@ def _dryrun_steps(n_devices: int, device="cuda") -> dict:
     )
     from rdst_tpu_torch.table import Table
 
-    mesh = make_mesh(n_devices, device=device)
+    mesh = make_mesh(n_devices, device=device, devices=devices)
     dev = mesh.device
     steps = {}
     n = ROWS_PER_SHARD * n_devices
@@ -118,11 +130,11 @@ def _dryrun_steps(n_devices: int, device="cuda") -> dict:
         joined, n_matched = distributed_join(t, dim, "grp", mesh=mesh, **kw)
         steps[step] = (joined, n_matched)
         assert int(n_matched) == n
-        assert np.array_equal(_np(joined["name"]), _np(joined["grp"]) * 11)
+        assert np.array_equal(_column(joined, "name"), _column(joined, "grp") * 11)
 
     # 2-axis (host x chip) mesh: the two-stage exchange
     if n_devices >= 2 and n_devices % 2 == 0:
-        mesh2 = make_mesh_2d(2, n_devices // 2, device=device)
+        mesh2 = make_mesh_2d(2, n_devices // 2, device=device, devices=devices)
         w2, p2, c2 = distributed_sort(
             list(nk.words), [payload], mesh=mesh2, axis=mesh2.axis_names,
             stable=True, overlap_exchange=True,
@@ -158,6 +170,6 @@ def _dryrun_steps(n_devices: int, device="cuda") -> dict:
     return steps
 
 
-def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    _dryrun_steps(n_devices, device)
+def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> None:
+    _dryrun_steps(n_devices, device, devices)
 
