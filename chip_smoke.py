@@ -96,13 +96,19 @@ Phases, each printing its own lines:
          overlapped exchange, whose exchanges cross processes and launch B6
          with 8 senders and 4 receivers (its launches, the transport's
          bytes, the size matrix's host reads and a split of the call into
-         size read, transport, B6 and sorts); each bit-equal to torch.sort
+         size read, staging, transport, B6 and sorts); the same two ranks
+         each holding two entries of the card (``devices=[card] * 2``),
+         whose exchanges land through B6's multi-card form, one call at
+         least reading remote senders on card 0 into receivers on card 1,
+         and every multi-card shape held, timed, against its plain per-card
+         form; each bit-equal to torch.sort
          and to the one-process ``make_mesh(8)``; then the four table
          operators at the table phase's TPC-H shape (LINEITEM 2^26, ORDERS
          2^24, each rank passing its own rows): Q1's filter, Q18's
          aggregate (hash and range), the lineitem-orders hash join and
-         ORDER BY on orders, each rank's rows and counts bit-equal to its
-         shards' share of the one-process ``make_mesh(8)`` result and its
+         ORDER BY on orders (on either gloo layout), each rank's rows and
+         counts bit-equal to its shards' share of the one-process
+         ``make_mesh(8)`` result and its
          count to the torch oracle's, with first and warm times, rows per
          second, peak device memory, launches, the transport and, over two
          ranks, a synchronized split; each rank then holds B6 at every
@@ -1133,22 +1139,7 @@ def cards_calls(torch, P, par, rd, dev, gen, planes_u32, drive, entries, entries
     D = 8
     n28 = D * nl
     sent = []  # (label, senders' (dtypes, length), offs, sizes, cap, cards, devices)
-    real = shuffle.remote_dma_exchange_cards
-
-    def recorder(label):
-        def rec(planes, offs, sizes, capacity, send_cards, recv_cards, devs, streams=None):
-            kept = []
-            for sc, o, z in zip(send_cards, offs, sizes):  # on the sender's stream
-                with (contextlib.nullcontext() if streams is None
-                      else torch.cuda.stream(streams[sc])):
-                    kept.append((o.clone(), z.clone()))
-            sent.append((label, [([p.dtype for p in ps], int(ps[0].shape[0]))
-                                 for ps in planes],
-                         [o for o, _ in kept], [z for _, z in kept],
-                         capacity, list(send_cards), list(recv_cards), list(devs)))
-            return real(planes, offs, sizes, capacity, send_cards, recv_cards, devs,
-                        streams)
-        return rec
+    recorder = keep_b6_cards_inputs(torch, shuffle, sent)
 
     def warm(fn):
         times = []
@@ -1167,12 +1158,9 @@ def cards_calls(torch, P, par, rd, dev, gen, planes_u32, drive, entries, entries
         ref = host(one_fn(), [dev])
         torch.cuda.empty_cache()
         t_one = warm(one_fn)
-        shuffle.remote_dma_exchange_cards = recorder(label)
-        try:
+        with patched(shuffle, "remote_dma_exchange_cards", recorder(label)):
             got, _ = drive(f"{label} on {len(mesh.devices)} card entries", rows, many_fn,
                            exchange=exchanges > 0)
-        finally:
-            shuffle.remote_dma_exchange_cards = real
         b6 = sum(1 for x in sent if x[0] == label)
         if b6 < exchanges:
             raise AssertionError(f"{label}: {b6} multi-card exchanges, want >= {exchanges}")
@@ -1245,6 +1233,57 @@ def cards_calls(torch, P, par, rd, dev, gen, planes_u32, drive, entries, entries
     del li, od, lineitem, orders, mask
     torch.cuda.empty_cache()
     return sent
+
+
+def keep_b6_cards_inputs(torch, shuffle, sent):
+    """``recorder(label)``: a stand-in for the multi-card B6 call the
+    shuffle makes (``shuffle.remote_dma_exchange_cards``) that appends each
+    call's (label, senders' (dtypes, length), offsets, sizes, capacity, send
+    cards, receive cards, devices) to ``sent``, the vectors copied on their
+    senders' streams, for :func:`check_b6_cards`."""
+    real = shuffle.remote_dma_exchange_cards
+
+    def recorder(label):
+        def rec(planes, offs, sizes, capacity, send_cards, recv_cards, devs, streams=None):
+            kept = []
+            for sc, o, z in zip(send_cards, offs, sizes):  # on the sender's stream
+                with (contextlib.nullcontext() if streams is None
+                      else torch.cuda.stream(streams[sc])):
+                    kept.append((o.clone(), z.clone()))
+            sent.append((label, [([p.dtype for p in ps], int(ps[0].shape[0]))
+                                 for ps in planes],
+                         [o for o, _ in kept], [z for _, z in kept],
+                         capacity, list(send_cards), list(recv_cards), list(devs)))
+            return real(planes, offs, sizes, capacity, send_cards, recv_cards, devs,
+                        streams)
+        return rec
+    return recorder
+
+
+def cards_shapes(sent) -> list:
+    """The (send cards, receive cards, planes, capacity) of recorded
+    multi-card B6 calls, each once."""
+    return sorted({(tuple(sc), tuple(rc), len(senders[0][0]), cap)
+                   for _, senders, _, _, cap, sc, rc, _ in sent})
+
+
+def cards_landed(sent) -> int:
+    """Recorded multi-card B6 calls of a rank of several cards whose
+    remote senders (the ones beyond its receivers, all on card 0, where the
+    transport delivers) land on card 1."""
+    return sum(1 for _, _, _, _, _, sc, rc, _ in sent
+               if sc.count(0) > rc.count(0) and 1 in rc)
+
+
+@contextlib.contextmanager
+def patched(obj, name, fn):
+    """``obj.name`` is ``fn`` inside the context."""
+    real = getattr(obj, name)
+    setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
 
 
 def check_b6_cards(torch, par, rd, dev, entries, sent, planes_of, check):
@@ -1609,10 +1648,11 @@ def trace_child() -> int:
     return 0
 
 
-DIST_MODES = {  # mode: (world size, backend, rows in all)
-    "nccl1": (1, "nccl", 1 << 28),
-    "gloo2": (2, "gloo", 1 << 27),
-    "nccl2": (2, "nccl", 1 << 24),  # tried once: NCCL may refuse one card twice
+DIST_MODES = {  # mode: (world size, backend, rows in all, card entries a rank)
+    "nccl1": (1, "nccl", 1 << 28, 1),
+    "gloo2": (2, "gloo", 1 << 27, 1),
+    "gloo2x2": (2, "gloo", 1 << 27, 2),  # two entries of the one card a rank
+    "nccl2": (2, "nccl", 1 << 24, 1),  # tried once: NCCL may refuse one card twice
 }
 NCCL_PROBE = "probing: an all_reduce over two NCCL ranks on one card"
 
@@ -1622,7 +1662,9 @@ def multiprocess_phase(launches):
     processes on the one card (``chip_smoke.py --dist MODE RANK``,
     :func:`dist_child`): (i) one NCCL rank, (ii) two gloo ranks with 4
     shards each, whose exchanges cross processes through B6's rectangular
-    launch, (iii) two NCCL ranks on the
+    launch, (iii) the same two ranks each holding two entries of the card
+    (``devices=[card] * 2``, two shards an entry), whose exchanges land
+    through B6's multi-card form, (iv) two NCCL ranks on the
     one card, tried once.  What NCCL answers in (iii), inside its first
     collective (an error, a hang or a crash there), is printed as a finding;
     any other failure fails the phase.  Each child's last line is its
@@ -1630,7 +1672,7 @@ def multiprocess_phase(launches):
     root = os.path.dirname(os.path.abspath(__file__))
     rdv = os.path.join(root, "build", "chip_smoke_dist")
     os.makedirs(rdv, exist_ok=True)
-    for mode, (world, _, _) in DIST_MODES.items():
+    for mode, (world, *_rest) in DIST_MODES.items():
         init = os.path.join(rdv, mode)
         if os.path.exists(init):
             os.remove(init)
@@ -1684,8 +1726,10 @@ def dist_child(mode, rank, init) -> int:
     output is held bit-equal to that result (planes and counts on the flat
     mesh, the valid rows elsewhere) and to torch.sort, then the table
     paths run (:func:`dist_table_paths`).  The counted call of each
-    variant and path records the shapes of its B2-B6 launches; afterwards
-    each shape is held against its plain version on this rank."""
+    variant and path records the shapes of its B2-B6 launches (B6's
+    multi-card form with its cards, where a rank holds several entries);
+    afterwards each shape is held against its plain version on this
+    rank."""
     import datetime
 
     import torch
@@ -1703,8 +1747,9 @@ def dist_child(mode, rank, init) -> int:
     from rdst_tpu_torch.parallel import remote_dma as rd
     from rdst_tpu_torch.parallel import shuffle as sh
 
-    world, backend, n = DIST_MODES[mode]
+    world, backend, n, K = DIST_MODES[mode]
     dev = torch.device("cuda", 0)
+    entries = [dev] * K if K > 1 else None
     _build.library()
     sign = -(1 << 63)
     gen = torch.Generator(device=dev)
@@ -1752,20 +1797,25 @@ def dist_child(mode, rank, init) -> int:
     L = 8 // world
     first = rank * L
     rows = slice(first * (n // 8), (first + L) * (n // 8))
+    on = dict(devices=entries) if entries else {}
     if world == 1:
         variants = [("make_mesh(8)", par.make_mesh(8), {}),
                     ("make_mesh_2d(1, 8)", par.make_mesh_2d(1, 8), {})]
     else:
-        variants = [("make_mesh(8)", par.make_mesh(8), {}),
-                    ("make_mesh_2d(2, 4)", par.make_mesh_2d(2, 4), {}),
-                    ("make_mesh(8), overlap_exchange", par.make_mesh(8),
+        variants = [("make_mesh(8)", par.make_mesh(8, **on), {}),
+                    ("make_mesh_2d(2, 4)", par.make_mesh_2d(2, 4, **on), {}),
+                    ("make_mesh(8), overlap_exchange", par.make_mesh(8, **on),
                      dict(overlap_exchange=True))]
     launches = {name: 0 for name in KERNEL_INFO}
     seen = {}  # B2-B5: the counted calls' launches by shape
     b6_cases = {}  # B6: (senders, receivers, planes, capacity) -> a copy of its inputs
     shapes = set()  # B6's shapes in the current variant's counted call
-    real_b6 = rd.remote_dma_exchange_cuda
+    cards_sent = []  # B6's multi-card calls: as cards_calls records them
     b6 = keep_b6_inputs(torch, rd, b6_cases, shapes)
+    b6_cards = keep_b6_cards_inputs(torch, sh, cards_sent)
+
+    def joined(planes):  # an output plane of K > 1 entries: its blocks in order
+        return [torch.cat(x) if isinstance(x, list) else x for x in planes]
 
     for label, mesh, kw in variants:
         if len(mesh.axis_names) == 2:
@@ -1780,22 +1830,25 @@ def dist_child(mode, rank, init) -> int:
         for k in M.TRANSPORT:
             M.TRANSPORT[k] = 0
         shapes.clear()
+        calls_before = len(cards_sent)
         if world > 1:
             dist.barrier()
         torch.cuda.synchronize()
-        rd.remote_dma_exchange_cuda = b6
-        try:
-            with record_shapes(fs, fm, seen):
-                t0 = time.perf_counter()
-                w, p, c = call()
-                torch.cuda.synchronize()
-                first_s = time.perf_counter() - t0
-        finally:
-            rd.remote_dma_exchange_cuda = real_b6
+        with patched(rd, "remote_dma_exchange_cuda", b6), \
+                patched(sh, "remote_dma_exchange_cards", b6_cards(label)), \
+                record_shapes(fs, fm, seen):
+            t0 = time.perf_counter()
+            w, p, c = call()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
         counted = {name: _build.KERNELS[name].launches for name in KERNEL_INFO}
         for name, v in counted.items():
             launches[name] += v
         moved = dict(M.TRANSPORT)
+        if entries and any(not isinstance(x, list) or [b.device for b in x] != entries
+                           for x in w + p):
+            raise AssertionError(f"{label}: outputs are not one block an entry")
+        w, p = joined(w), joined(p)
         got = dense(w + p, c, first, L, int(w[0].shape[0]) // L)
         start = sum(c.tolist()[:first])
         if not same(got, [x[start:start + got[0].shape[0]] for x in want]):
@@ -1810,7 +1863,11 @@ def dist_child(mode, rank, init) -> int:
                 raise AssertionError(f"{label}: planes differ from the one-process mesh")
         if counted["remote_exchange"] <= 0:
             raise AssertionError(f"{label} exchanged without B6")
-        if world > 1 and not any(s != r for s, r, _, _ in shapes):
+        landed = cards_landed(cards_sent[calls_before:])
+        if entries and not landed:
+            raise AssertionError(f"{label}: no B6 call read remote senders on card 0 "
+                                 "into receivers on card 1")
+        if world > 1 and not entries and not any(s != r for s, r, _, _ in shapes):
             raise AssertionError(f"{label}: B6 never launched in its rectangular form")
         del w, p, c, got
         # warm time, then the split with a synchronize around each piece
@@ -1823,15 +1880,21 @@ def dist_child(mode, rank, init) -> int:
         warm = time.perf_counter() - t0
         split = _timed_split(torch, sh, M, rd, call) if world > 1 else {}
         print(f"path {label} (rank {rank}): first {first_s:.4f} s, warm {warm:.4f} s, "
-              f"{n / warm:,.0f} rows/s over {world} rank(s); bit-exact vs torch.sort "
-              f"and the one-process make_mesh(8); launches {counted}; B6 shapes "
-              f"(senders, receivers, planes, capacity) {sorted(shapes)}; "
-              f"transport {moved}" + (f"; split (synchronized run, s): {split}"
-                                      if split else ""))
+              f"{n / warm:,.0f} rows/s over {world} rank(s)"
+              + (f" of {K} card entries" if entries else "")
+              + f"; bit-exact vs torch.sort and the one-process make_mesh(8); launches "
+              f"{counted}; B6 shapes (senders, receivers, planes, capacity) "
+              f"{sorted(shapes)}" + (f"; multi-card B6 calls (send cards, receive "
+                                     f"cards, planes, capacity) "
+                                     f"{cards_shapes(cards_sent[calls_before:])}, "
+                                     f"{landed} with remote senders on card 0 and "
+                                     "receivers on card 1" if entries else "")
+              + f"; transport {moved}" + (f"; split (synchronized run, s): {split}"
+                                          if split else ""))
     del hi, lo, pay, want, one_planes, one_counts
     torch.cuda.empty_cache()
     dist_table_paths(torch, par, M, sh, rd, fs, fm, dev, world, rank, tables, launches,
-                     seen, b6, shapes)
+                     seen, b6, shapes, b6_cards, cards_sent, entries)
     del tables
     torch.cuda.empty_cache()
 
@@ -1840,6 +1903,11 @@ def dist_child(mode, rank, init) -> int:
         _b6_case(torch, rd, b6_cases.pop(key), key, f"rank {rank}")
     torch.cuda.empty_cache()
     planes_of, check = child_checks(torch, P, gen, dev, f"rank {rank}")
+    if entries:  # each multi-card shape, timed, against the plain per-card form
+        check_b6_cards(torch, par, rd, dev, entries, cards_sent, planes_of,
+                       child_checks(torch, P, gen, dev, f"rank {rank}", timed=True)[1])
+        del cards_sent[:]
+        torch.cuda.empty_cache()
     check_recorded(fs, fm, seen, planes_of, check, main=False)
     print(json.dumps({"launches": launches}))
     dist.destroy_process_group()
@@ -1936,21 +2004,24 @@ def dist_table_refs(torch, par, dev, world, rank, n_lineitem=1 << 26, n_orders=1
 
 
 def dist_table_paths(torch, par, M, sh, rd, fs, fm, dev, world, rank, tables,
-                     launches, seen, b6, shapes):
+                     launches, seen, b6, shapes, b6_cards, cards_sent, entries):
     """After the sort variants: the four table operators on ``make_mesh(8)``
-    over this process group, each rank passing its own rows.  Each path's
-    counted call records its B2-B5 shapes (``record_shapes``) and B6's
-    (``b6``); its rows and counts must be bit-equal to this rank's share of
-    the one-process result and its count to the torch oracle's.  Then
-    ``WARM_CALLS`` timed calls (the median is the warm time) with their
-    peak device memory and, over several ranks, a synchronized split."""
+    over this process group (on the card ``entries`` of each rank where
+    given), each rank passing its own rows.  Each path's counted call
+    records its B2-B5 shapes (``record_shapes``) and B6's (``b6``, and the
+    multi-card calls with ``b6_cards`` into ``cards_sent``); its rows (one
+    Table an entry, concatenated) and counts must be bit-equal to this
+    rank's share of the one-process result and its count to the torch
+    oracle's.  Then ``WARM_CALLS`` timed calls (the median is the warm time)
+    with their peak device memory and, over several ranks, a synchronized
+    split."""
     from rdst_tpu_torch import _build
     from rdst_tpu_torch.table import Table
 
     li, od, mask, refs, oracle = tables
     li, od = ({c: v.to(dev) for c, v in t.items()} for t in (li, od))
     mask = mask.to(dev)
-    mesh = par.make_mesh(8, device=dev)
+    mesh = par.make_mesh(8, device=dev, devices=entries)
     calls = _table_calls(par, Table(li), Table(od), mask, mesh)
     for name, (rows, call, kind, key) in calls.items():
         for k in _build.KERNELS.values():
@@ -1958,19 +2029,22 @@ def dist_table_paths(torch, par, M, sh, rd, fs, fm, dev, world, rank, tables,
         for k in M.TRANSPORT:
             M.TRANSPORT[k] = 0
         shapes.clear()
+        calls_before = len(cards_sent)
         if world > 1:
             torch.distributed.barrier()
         torch.cuda.synchronize()
-        real_b6 = rd.remote_dma_exchange_cuda
-        rd.remote_dma_exchange_cuda = b6
-        try:
-            with record_shapes(fs, fm, seen):
-                t0 = time.perf_counter()
-                table, count = call()
-                torch.cuda.synchronize()
-                first_s = time.perf_counter() - t0
-        finally:
-            rd.remote_dma_exchange_cuda = real_b6
+        with patched(rd, "remote_dma_exchange_cuda", b6), \
+                patched(sh, "remote_dma_exchange_cards", b6_cards(name)), \
+                record_shapes(fs, fm, seen):
+            t0 = time.perf_counter()
+            table, count = call()
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        if entries:
+            if not isinstance(table, list) or [t.device for t in table] != entries:
+                raise AssertionError(f"{name}: the output is not one Table an entry")
+            table = Table({c: torch.cat([t[c] for t in table])
+                           for c in table[0].column_names})
         counted = {k: _build.KERNELS[k].launches for k in KERNEL_INFO}
         for k, v in counted.items():
             launches[k] += v
@@ -1992,10 +2066,14 @@ def dist_table_paths(torch, par, M, sh, rd, fs, fm, dev, world, rank, tables,
         if not ok or total != oracle[key]:
             raise AssertionError(f"{name} (rank {rank}): count {total} differs from the "
                                  f"one-process result's or the oracle's {oracle[key]}")
+        landed = cards_landed(cards_sent[calls_before:])
         if key != "kept":  # every path but the filter exchanges
             if counted["remote_exchange"] <= 0:
                 raise AssertionError(f"{name} exchanged without B6")
-            if world > 1 and not any(s != r for s, r, _, _ in shapes):
+            if entries and not landed:
+                raise AssertionError(f"{name}: no B6 call read remote senders on card 0 "
+                                     "into receivers on card 1")
+            if world > 1 and not entries and not any(s != r for s, r, _, _ in shapes):
                 raise AssertionError(f"{name}: B6 never launched in its rectangular form")
         del table, count, host, want
         torch.cuda.synchronize()
@@ -2026,7 +2104,12 @@ def dist_table_paths(torch, par, M, sh, rd, fs, fm, dev, world, rank, tables,
               f"launches B2 {counted['bitonic_tail']}, B3 {counted['bitonic_span']}, "
               f"B4 {counted['merge_stage']}, B5 {counted['merge_tail']}, B6 "
               f"{counted['remote_exchange']}; B6 shapes (senders, receivers, planes, "
-              f"capacity) {sorted(shapes)}; transport {moved}"
+              f"capacity) {sorted(shapes)}" + (
+                  f"; on {len(entries)} card entries a rank, multi-card B6 calls (send "
+                  f"cards, receive cards, planes, capacity) "
+                  f"{cards_shapes(cards_sent[calls_before:])}, {landed} with remote "
+                  "senders on card 0 and receivers on card 1" if entries else "")
+              + f"; transport {moved}"
               + (f"; split (synchronized run, s): {split}" if split else ""))
     del calls, li, od, mask, refs
 
@@ -2044,10 +2127,13 @@ def _aligned_clone(torch, t):
 def _timed_split(torch, sh, M, rd, call):
     """One more call with a synchronize around each piece: the size read
     (the sizes' all_gather and the host read of the size matrix), the
-    transport (``Mesh.all_to_all``, gloo's copies through the CPU
-    included), B6 inside the cross-process exchanges and B6 in the
-    exchanges within a process (the 2-axis mesh's stage 2), the rest of
-    each cross-process exchange (packing, the offset table), the sorts,
+    staging of each card's outgoing words to the communicator's device
+    (``shuffle._stage``: gloo's copy to the CPU), the transport
+    (``Mesh.all_to_all``, its copies back from the CPU included), B6 inside
+    the cross-process exchanges and B6 in the exchanges within a process
+    (the 2-axis mesh's stage 2), each in either form (one launch, or
+    ``remote_dma_exchange_cards``' launch per receiving card), the rest of
+    each cross-process exchange (packing, the offset tables), the sorts,
     split at the first exchange (the local sorts before it, the routing
     and finish sorts after), a table operator's body (``dtable._agg_local``,
     ``_agg_combine`` with its gather, ``_join_local``) and densify
@@ -2060,7 +2146,8 @@ def _timed_split(torch, sh, M, rd, call):
     acc = collections.Counter()
     state = {"exchanged": False, "across": False}
     saved = (M.Mesh.all_to_all, rd.remote_dma_exchange_cuda, sh._exchange_across,
-             sh._local_sort, M.Mesh.read_gathered)
+             sh._local_sort, M.Mesh.read_gathered, sh.remote_dma_exchange_cards,
+             sh._stage)
     body = {k: getattr(dt, k) for k in ("_agg_local", "_agg_combine", "_join_local",
                                          "_dense")}
 
@@ -2081,13 +2168,22 @@ def _timed_split(torch, sh, M, rd, call):
         finally:
             state["across"] = False
 
+    def b6_key():
+        return "B6" if state["across"] else "B6 within a process"
+
+    def restore():
+        (M.Mesh.all_to_all, rd.remote_dma_exchange_cuda, sh._exchange_across,
+         sh._local_sort, M.Mesh.read_gathered, sh.remote_dma_exchange_cards,
+         sh._stage) = saved
+
     M.Mesh.all_to_all = timed("transport", saved[0])
-    rd.remote_dma_exchange_cuda = timed(
-        lambda: "B6" if state["across"] else "B6 within a process", saved[1])
+    rd.remote_dma_exchange_cuda = timed(b6_key, saved[1])
     sh._exchange_across = timed("exchange", across)
     sh._local_sort = timed(lambda: "sorts after" if state["exchanged"] else "sorts before",
                            saved[3])
     M.Mesh.read_gathered = timed("size read", saved[4])
+    sh.remote_dma_exchange_cards = timed(b6_key, saved[5])
+    sh._stage = timed("staging", saved[6])
     for k, fn in body.items():
         setattr(dt, k, timed("densify" if k == "_dense" else "body", fn))
     try:
@@ -2097,12 +2193,11 @@ def _timed_split(torch, sh, M, rd, call):
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
-        M.Mesh.all_to_all, rd.remote_dma_exchange_cuda, sh._exchange_across, \
-            sh._local_sort, M.Mesh.read_gathered = saved
+        restore()
         for k, fn in body.items():
             setattr(dt, k, fn)
     acc["exchange rest"] = (acc["exchange"] - acc["transport"] - acc["B6"]
-                            - acc["size read"])
+                            - acc["size read"] - acc["staging"])
     del acc["exchange"]
     acc["rest of the call"] = total - sum(acc.values())
     acc["call"] = total
@@ -2126,19 +2221,28 @@ def keep_b6_inputs(torch, rd, cases, shapes):
     return b6
 
 
-def child_checks(torch, P, gen, dev, tag):
+def child_checks(torch, P, gen, dev, tag, timed=False):
     """``planes_of`` and ``check`` for :func:`check_recorded` in a child
     process: random planes from ``gen``, and a check that prints the error
     with ``tag`` and raises unless the kernel is bit-equal to its plain
-    version."""
+    version; ``timed``: it also prints the kernel's and the plain version's
+    times (CUDA events) and the bound from its ``moved`` bytes."""
     def planes_of(n, dtypes):
         return [P.narrow(torch.randint(0, P.all_ones(dt) + 1, (n,), generator=gen,
                                        device=dev, dtype=torch.int64), dt)
                 for dt in dtypes]
 
-    def check(name, label, kernel_fn, plain_fn, **_):
-        err = max_err(kernel_fn(), plain_fn())
-        print(f"{name} [{label}; {tag}]: max_abs_err={err}")
+    def check(name, label, kernel_fn, plain_fn, moved=None, **_):
+        got = kernel_fn()
+        err = max_err(got, plain_fn())
+        times = ""
+        if timed:
+            ms, plain_ms = cuda_ms(torch, kernel_fn), cuda_ms(torch, plain_fn)
+            bound = moved(got) / HBM * 1e3
+            times = (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound:.4f} ms "
+                     f"(bytes), kernel at {bound / ms:.1%} of it")
+        del got
+        print(f"{name} [{label}; {tag}]: max_abs_err={err}{times}")
         if err != 0:
             raise AssertionError(f"{name} [{label}; {tag}] disagrees with its plain "
                                  f"version (max_abs_err {err})")

@@ -41,10 +41,20 @@ output (the static-length outputs of ``distributed_sort_table`` and
 join rows of its shards with the global group or match count), so the
 ranks' outputs, concatenated rank by rank, are the one-process result.
 ``init_distributed(device="cpu", init_method="file:///tmp/rdv", rank=r,
-world_size=n)`` starts gloo without torchrun.  A rank holds one card: a
-mesh over processes with ``devices`` of several raises
-``NotImplementedError`` (ranks that each hold several cards, the JAX
-package's multi-host pod, are not done).
+world_size=n)`` starts gloo without torchrun.  A rank may hold several
+cards, as each host of the JAX package's multi-host pod does: one process
+per host under ``torchrun --nnodes=H --nproc_per_node=1``, each passing
+its host's cards:
+
+    init_distributed()                        # LOCAL_RANK 0: card 0 is current
+    mesh = make_mesh_2d(H, 4, devices=["cuda:0", "cuda:1", "cuda:2", "cuda:3"])
+    words, payloads, counts = distributed_sort([hi, lo], [pay], mesh=mesh,
+                                               axis=mesh.axis_names)
+
+Card 0 of each rank carries the collectives (under NCCL it must be the
+current device).  The outputs are per card as on one process: concatenated
+rank by rank, and within a rank card by card, they are the one-process
+result.
 """
 from rdst_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh, make_mesh_2d
 from rdst_tpu_torch.parallel.shuffle import (

@@ -23,18 +23,22 @@ collective copies its tensor to the CPU and back: a blocking round trip
 through the host, the cost of the backend the caller chose, made explicit
 here.  Collectives carry int64 (gloo refuses uint32): any other dtype
 raises before a call.  Without a process group, or with one process, a
-mesh holds every shard and calls nothing.
+mesh holds every shard and calls nothing.  A rank may hold several cards
+too (below): the reference's multi-host pod, one process per host driving
+all of its chips.
 
 The collectives reduce over every shard of the mesh (the shuffle's body
 reduces over its whole partition axis, a tuple of both axes on a 2-axis
 mesh); :meth:`Mesh.groups` names the shards that exchange along one axis
 of a 2-axis mesh.
 
-**Cards.**  In one process a mesh may lie on several cards: ``devices``
-lists K of them (K dividing the shard count), and card c holds the
-contiguous flat shards ``[c * D / K, (c + 1) * D / K)``, so on
-``make_mesh_2d(H, C, devices=...)`` with K = H each host row lies on one
-card, as ``jax.devices()``' process-major order places the reference's.
+**Cards.**  Each process's block of a mesh may lie on several cards:
+``devices`` lists K of them (K dividing the L shards of the process), and
+card c holds the contiguous flat shards ``[p * L + c * L / K, p * L + (c +
+1) * L / K)`` of process p, so in one process on ``make_mesh_2d(H, C,
+devices=...)`` with K = H each host row lies on one card, as
+``jax.devices()``' process-major order places the reference's, and over H
+processes each rank's host row lies on its K cards.
 ``devices=None`` is ``[device]``: one card, today's mesh, on the caller's
 current stream.  With K > 1 each entry is its own card, even where entries
 repeat: on CUDA each holds its own ``torch.cuda.Stream``, held by the mesh,
@@ -52,9 +56,21 @@ the host.  Outputs on K > 1 cards are per card: each output plane (counts
 excepted, which stay one replicated (D,) tensor on card 0) is a list over
 the cards, entry c card c's (L_c * capacity,) block, shard-major, on card
 c; concatenated in card order the blocks are the one-card result, as the
-blocks of the processes are on a mesh over processes.  Ranks that each
-hold several cards are not done: a mesh over processes takes one card a
-rank.
+blocks of the processes are on a mesh over processes.
+
+**Ranks that hold several cards.**  Over processes, card 0 of each rank
+carries the collectives: under NCCL it must be the current CUDA device (the
+card :func:`init_distributed` takes from ``LOCAL_RANK``; the constructor
+raises ``ValueError`` otherwise), so the supported layout is torchrun with
+one process per host and ``devices`` listing the host's cards.  Under gloo
+the collectives run on the CPU (:attr:`Mesh.comm_device`).  Every
+collective first gathers the rank's cards onto card 0 (one event per card)
+and then makes one ``torch.distributed`` call on card 0's stream.  The
+cross-process exchange (``shuffle._exchange_across``) stages each card's
+outgoing words to the communicator's device on that card's stream, and
+lands what arrives (on card 0) through B6's multi-card form.  Outputs keep
+the convention above: concatenated rank by rank, and within a rank card by
+card, they are the one-process result.
 """
 from __future__ import annotations
 
@@ -92,11 +108,8 @@ class Mesh:
         K = len(self.devices)
         self.processes = (dist.is_available() and dist.is_initialized()
                           and dist.get_world_size() > 1)
-        if self.processes and K > 1:
-            raise NotImplementedError(
-                "a mesh over processes takes one card a rank: ranks that each "
-                "hold several cards are not done")
         self.rank, self.world = 0, 1
+        #: where the collectives run: card 0 under NCCL, else the CPU
         self.comm_device = self.device
         if self.processes:
             self.rank, self.world = dist.get_rank(), dist.get_world_size()
@@ -105,6 +118,12 @@ class Mesh:
                                  f"{self.world} processes")
             if dist.get_backend() != "nccl":
                 self.comm_device = torch.device("cpu")
+            elif (self.device.type != "cuda"
+                  or self.device.index != torch.cuda.current_device()):
+                raise ValueError(
+                    f"under NCCL a rank's first card carries the communicator and "
+                    f"must be the current CUDA device (init_distributed sets it "
+                    f"from LOCAL_RANK): got {self.device}")
         self.n_local = self.size // self.world
         if self.n_local % K:
             raise ValueError(f"{self.n_local} shards do not split evenly over {K} cards")
@@ -268,11 +287,11 @@ class Mesh:
         with self.on(0):
             x = self._stack(xs)
             x = x.sum(0) if op == "sum" else x.amin(0) if op == "min" else x.amax(0)
-        if not self.processes:
-            return x
-        y = x.to(self.comm_device)
-        dist.all_reduce(y, op=getattr(dist.ReduceOp, _OPS[op]))
-        return y.to(self.device)
+            if not self.processes:
+                return x
+            y = x.to(self.comm_device)
+            dist.all_reduce(y, op=getattr(dist.ReduceOp, _OPS[op]))
+            return y.to(self.device)
 
     def psum(self, xs) -> torch.Tensor:
         return self._reduce(xs, "sum")
@@ -294,11 +313,12 @@ class Mesh:
     def gather_blocks(self, x: torch.Tensor) -> torch.Tensor:
         """(world, *x.shape): every rank's ``x`` (at least 1-D, the same
         shape and dtype on every rank), rank-major, on the mesh's device."""
-        y = x.to(self.comm_device).contiguous()
-        out = torch.empty((self.world * y.shape[0],) + tuple(y.shape[1:]),
-                          dtype=y.dtype, device=self.comm_device)
-        dist.all_gather_into_tensor(out, y)
-        return out.view((self.world,) + tuple(y.shape)).to(self.device)
+        with self.on(0):
+            y = x.to(self.comm_device).contiguous()
+            out = torch.empty((self.world * y.shape[0],) + tuple(y.shape[1:]),
+                              dtype=y.dtype, device=self.comm_device)
+            dist.all_gather_into_tensor(out, y)
+            return out.view((self.world,) + tuple(y.shape)).to(self.device)
 
     def read_gathered(self, xs, local) -> np.ndarray:
         """``all_gather(xs)``, (D, ...), followed by this process's ``local``
@@ -308,23 +328,28 @@ class Mesh:
         gathered = self.all_gather(xs)
         with self.on(0):
             both = torch.cat([gathered, torch.stack(self._home(local))])
-        TRANSPORT["host_reads"] += 1
-        return both.cpu().numpy()
+            TRANSPORT["host_reads"] += 1
+            return both.cpu().numpy()
 
     def all_to_all(self, send: torch.Tensor, send_counts, recv_counts) -> torch.Tensor:
-        """One ``all_to_all_single`` of a 1-D int32 buffer: ``send_counts[q]``
-        words to rank q, in rank order; returns the words received,
-        ``recv_counts[p]`` from rank p, on the mesh's device.  Under gloo
-        both buffers cross to the CPU and back (``TRANSPORT`` counts it)."""
-        recv = torch.empty(sum(recv_counts), dtype=send.dtype, device=self.comm_device)
-        if self.comm_device != send.device:
-            TRANSPORT["host_copy_bytes"] += 4 * (send.numel() + recv.numel())
-        dist.all_to_all_single(recv, send.to(self.comm_device),
-                               list(recv_counts), list(send_counts))
-        TRANSPORT["calls"] += 1
-        TRANSPORT["bytes_sent"] += 4 * send.numel()
-        TRANSPORT["bytes_received"] += 4 * recv.numel()
-        return recv.to(self.device)
+        """One ``all_to_all_single`` of a 1-D int32 buffer on the
+        communicator's device (:attr:`comm_device`, where the caller staged
+        every card's words): ``send_counts[q]`` words to rank q, in rank
+        order; returns the words received, ``recv_counts[p]`` from rank p, on
+        card 0, on its stream.  Under gloo with CUDA cards both buffers cross
+        the host (``TRANSPORT`` counts it)."""
+        if send.device != self.comm_device:
+            raise ValueError(f"stage the send buffer on {self.comm_device}, "
+                             f"not {send.device}")
+        with self.on(0):
+            recv = torch.empty(sum(recv_counts), dtype=send.dtype, device=self.comm_device)
+            if self.comm_device != self.device:
+                TRANSPORT["host_copy_bytes"] += 4 * (send.numel() + recv.numel())
+            dist.all_to_all_single(recv, send, list(recv_counts), list(send_counts))
+            TRANSPORT["calls"] += 1
+            TRANSPORT["bytes_sent"] += 4 * send.numel()
+            TRANSPORT["bytes_received"] += 4 * recv.numel()
+            return recv.to(self.device)
 
 
 #: What the cross-process exchange moved: ``calls`` (all_to_all_single),
@@ -340,7 +365,8 @@ def init_distributed(*, backend: str | None = None, device="cuda",
                      init_method: str | None = None, rank: int | None = None,
                      world_size: int | None = None, **kwargs) -> None:
     """Start the default process group for meshes that span processes (one
-    process per card, or per CPU rank): the counterpart of
+    process per card, or per host with the host's cards in the mesh's
+    ``devices``, or per CPU rank): the counterpart of
     ``jax.distributed.initialize``.
 
     Rank, world size and address come from torchrun's environment (``RANK``,
@@ -348,7 +374,9 @@ def init_distributed(*, backend: str | None = None, device="cuda",
     ``init_method="env://"``), or from the arguments.  The backend is
     ``nccl`` for ``device="cuda"`` and ``gloo`` for ``"cpu"`` unless
     ``backend`` says otherwise; on CUDA the process takes card
-    ``LOCAL_RANK`` (default 0).  Other keywords go to
+    ``LOCAL_RANK`` (default 0), which under NCCL must be the first card of
+    every mesh it builds (a rank of several cards: ``LOCAL_RANK`` 0 and
+    ``devices`` from card 0).  Other keywords go to
     ``torch.distributed.init_process_group``.  A second call is a no-op."""
     if dist.is_initialized():
         return
@@ -393,7 +421,8 @@ def make_mesh(n_shards: int, axis: str = "shard", *, device="cuda",
               devices=None) -> Mesh:
     """A 1-axis mesh of ``n_shards`` shards on ``device``, or on the cards
     ``devices`` (a block of shards each), spread over the processes of
-    :func:`init_distributed` where there are several."""
+    :func:`init_distributed` where there are several (each process's block
+    over its own ``devices``)."""
     devs = _devices(device, devices)
     return Mesh((n_shards,), (axis,), torch.device(device), devs)
 
@@ -403,7 +432,8 @@ def make_mesh_2d(n_hosts: int, chips_per_host: int,
                  device="cuda", devices=None) -> Mesh:
     """Two-axis mesh: ``axes[0]`` spans hosts, ``axes[1]`` the chips of a
     host; flat shard ``h * chips_per_host + c`` is (h, c).  Over
-    ``n_hosts`` processes each holds one host row; with ``devices`` of
+    ``n_hosts`` processes each holds one host row (on its ``devices``,
+    split over them in order); in one process with ``devices`` of
     ``n_hosts`` cards each card holds one."""
     devs = _devices(device, devices)
     return Mesh((n_hosts, chips_per_host), axes, torch.device(device), devs)

@@ -26,10 +26,13 @@ Within one process S == R (every shard sends to every shard).  On a mesh
 that spans processes (``parallel/shuffle.py``) the receivers are this
 process's shards and the senders every shard of the group: a remote
 sender's plane is its block of the buffer that ``torch.distributed``
-delivered, its offsets the running sums of its segments.  All planes of
-such a call lie on one device: stream order stands in for the reference's
-barrier (the collective that filled a remote block is ordered before the
-launch on the current stream).
+delivered, its offsets the running sums of its segments.  Where a rank
+holds one card, all planes of such a call lie on it: stream order stands
+in for the reference's barrier (the collective that filled a remote block
+is ordered before the launch on the current stream).  Where it holds
+several, the call takes the multi-card form below, the remote senders on
+card 0 (where the collective delivered them) and the local ones on their
+own cards.
 
 A group of shards on several cards of one process exchanges through
 :func:`remote_dma_exchange_cards`, the form the reference's kernel has (a

@@ -37,9 +37,12 @@ A group of shards that lies in more than one process exchanges in four
 steps (:func:`_exchange_across`): an ``all_gather`` of every sender's
 sizes; one host read of that size matrix (with this process's send
 offsets), because ``all_to_all_single`` takes its split sizes on the host;
-one ``all_to_all_single`` of exactly the words that land; and B6, whose
-senders are the group's shards (local ones from their own planes, remote
-ones from the transport buffer) and whose receivers are this process's.
+one ``all_to_all_single`` of exactly the words that land, each card's
+words staged to the communicator's device (card 0, or the CPU under gloo)
+on that card's stream; and B6, whose senders are the group's shards (local
+ones from their own planes on their cards, remote ones from the transport
+buffer on card 0) and whose receivers are this process's, one launch per
+receiving card where the call spans cards.
 
 Not ported, by design: the dense ``all_to_all`` emulation
 (shuffle.py:807-820), which exists only because XLA:CPU lacks
@@ -402,12 +405,15 @@ def _exchange_across(mesh, planes, input_offsets, send_sizes, capacity, groups):
     """:func:`_exchange_raw` for groups whose shards lie in several
     processes: (a) ``all_gather`` of every sender's sizes, (b) one host read
     of them with this process's offsets, (c) one ``all_to_all_single`` of
-    the words that land on another process's shards, (d) one B6 call per
-    group with a shard here: S = every shard of the group, R = this
-    process's."""
+    the words that land on another process's shards, each card's words
+    staged to the communicator's device on that card's stream, (d) one B6
+    call per group with a shard here: S = every shard of the group, R =
+    this process's.  A remote sender's planes are its block of what (c)
+    delivered, on card 0; a call whose senders and receivers lie on one
+    card launches there, any other launches once per receiving card
+    (``remote_dma_exchange_cards``)."""
     first = mesh.shards.start
     k = len(planes[0])
-    dev = planes[0][0].device
     # (a) and (b): ``all_to_all_single`` takes its split sizes on the host,
     # so every sender's sizes, (D, G), and this process's offsets, (L, G),
     # are read here, once per exchange
@@ -427,18 +433,19 @@ def _exchange_across(mesh, planes, input_offsets, send_sizes, capacity, groups):
         return [b for b, r in enumerate(group_of[s]) if mesh.owner(r) == q]
 
     # (c) the transport: to each rank, for each local sender, for each
-    # plane, the landing part of its segments for that rank's shards
-    pieces, send_counts = [], []
+    # plane, the landing part of its segments for that rank's shards; a
+    # rank's words come card by card, as the senders do
+    pieces = [[[] for _ in range(mesh.world)] for _ in mesh.cards]  # [card][rank]
+    send_counts = [0] * mesh.world
     for q in range(mesh.world):
-        n = 0
         for s in mesh.shards if q != mesh.rank else ():
             segs = [(int(off[s - first, b]), int(fit[s, b])) for b in toward(s, q)]
             for j in range(k):
                 for o, m in segs:
                     if m:
-                        pieces.append(P.sview(planes[s - first][j][o:o + m]))
-                        n += m
-        send_counts.append(n)
+                        pieces[mesh.card_of(s)][q].append(
+                            P.sview(planes[s - first][j][o:o + m]))
+                        send_counts[q] += m
     recv_counts, block = [], {}  # block: remote sender -> (start, words a plane)
     for p in range(mesh.world):
         n = 0
@@ -447,45 +454,99 @@ def _exchange_across(mesh, planes, input_offsets, send_sizes, capacity, groups):
             block[s] = (sum(recv_counts) + n, t)
             n += k * t
         recv_counts.append(n)
-    send = torch.cat(pieces) if pieces else torch.empty(0, dtype=torch.int32, device=dev)
+    with mesh.on(0):
+        send = torch.empty(sum(send_counts), dtype=torch.int32, device=mesh.comm_device)
+    at = np.cumsum([0] + send_counts)
+    for c in mesh.cards:
+        for q in range(mesh.world):
+            if pieces[c][q]:
+                n = sum(int(x.shape[0]) for x in pieces[c][q])
+                _stage(mesh, c, pieces[c][q], send[at[q]:at[q] + n])
+                at[q] += n
+    if mesh.streams is not None:
+        for st in mesh.streams[1:]:
+            mesh.streams[0].wait_stream(st)
+    del pieces
     moved = mesh.all_to_all(send, send_counts, recv_counts)
-    del send, pieces
+    del send
 
-    # (d) B6: local senders from their planes, remote ones from ``moved``
+    # (d) B6: local senders from their planes, remote ones from ``moved``;
+    # each sender's offsets and sizes on its card, in one copy a card
     recv = [None] * len(planes)
     n_valid = [None] * len(planes)
-    bufs, calls, tables = [], [], []  # tables: per call, offsets then sizes
+    calls = []
+    tables = [[] for _ in mesh.cards]  # per card: offsets then sizes of its senders
     for g in groups:
         mine = [b for b, r in enumerate(g) if mesh.owner(r) == mesh.rank]
         if not mine:
             continue
-        src = []
+        src, send_cards, rows = [], [], []
         for s in g:
             if mesh.owner(s) == mesh.rank:
+                c = mesh.card_of(s)
                 src.append(planes[s - first])
-                tables.append(off[s - first, mine])
+                tab = [off[s - first, mine], sz[s, mine]]
             else:
-                start, t = block[s]
+                c, (start, t) = 0, block[s]
                 src.append([moved[start + j * t:start + (j + 1) * t].view(torch.uint32)
                             for j in range(k)])
-                tables.append(np.cumsum(fit[s, mine]) - fit[s, mine])
-            tables.append(sz[s, mine])
-        calls.append((g, mine, src))
-    # every call's offsets and sizes reach the device in one copy
-    tab = torch.from_numpy(np.concatenate(tables).astype(np.int64))
-    if dev.type == "cuda":
-        tab = tab.pin_memory().to(dev, non_blocking=True)
-    at = 0
-    for g, mine, src in calls:
-        rows = tab[at:at + 2 * len(g) * len(mine)].view(len(g), 2, len(mine))
-        at += 2 * len(g) * len(mine)
-        rb, demand, _ = remote_dma_exchange(src, list(rows[:, 0]), list(rows[:, 1]),
-                                            capacity)
-        for r, b in enumerate(mine):
-            recv[g[b] - first] = [x[r * capacity:(r + 1) * capacity] for x in rb]
-            n_valid[g[b] - first] = demand[r]
-        bufs.append(rb)
+                tab = [np.cumsum(fit[s, mine]) - fit[s, mine], sz[s, mine]]
+            send_cards.append(c)
+            rows.append((c, sum(len(x) for x in tables[c])))
+            tables[c].extend(tab)
+        calls.append((g, mine, src, send_cards, rows))
+    on_card = [None] * len(tables)
+    for c in mesh.cards:
+        if not tables[c]:
+            continue
+        tab = torch.from_numpy(np.concatenate(tables[c]).astype(np.int64))
+        with mesh.on(c):
+            if mesh.devices[c].type == "cuda":
+                tab = tab.pin_memory().to(mesh.devices[c], non_blocking=True)
+            on_card[c] = tab
+    bufs = []
+    for g, mine, src, send_cards, rows in calls:
+        R = len(mine)
+        offs = [on_card[c][o:o + R] for c, o in rows]
+        sizes = [on_card[c][o + R:o + 2 * R] for c, o in rows]
+        recv_cards = [mesh.card_of(g[b]) for b in mine]
+        if len(set(send_cards + recv_cards)) == 1:
+            with mesh.on(recv_cards[0]):
+                rb, demand, _ = remote_dma_exchange(src, offs, sizes, capacity)
+            got = [(rb, demand)]
+            bufs.append(rb)
+        else:
+            got = remote_dma_exchange_cards(src, offs, sizes, capacity, send_cards,
+                                            recv_cards, mesh.devices, mesh.streams)
+            bufs.append([[x[0][j] for x in got] for j in range(k)])
+        r = 0  # each receiving card's block holds its receivers in group order
+        for rb, demand, *_ in got:
+            for i in range(int(demand.shape[0])):
+                s = g[mine[r]] - first
+                recv[s] = [x[i * capacity:(i + 1) * capacity] for x in rb]
+                n_valid[s] = demand[i]
+                r += 1
     return recv, n_valid, bufs
+
+
+def _stage(mesh, c, pieces, dst):
+    """Card c's words for one rank (``pieces``, on card c) into ``dst``, a
+    slice of the send buffer on the communicator's device, on card c's
+    stream: the one copy between cards the transport takes.  The send
+    buffer is card 0's allocation, so card c's stream first waits on card
+    0's; card 0's stream waits on every card before the collective."""
+    src_dev = mesh.devices[c]
+    with mesh.on(c):
+        if c and mesh.streams is not None:
+            mesh.streams[c].wait_stream(mesh.streams[0])
+        if dst.device == src_dev:
+            torch.cat(pieces, out=dst)
+        elif dst.device.type == "cpu":  # gloo: through the host
+            dst.copy_(torch.cat(pieces))
+        else:  # NCCL: another card's words onto card 0, peer to peer
+            buf = torch.cat(pieces)
+            with torch.cuda.stream(mesh.streams[0]):
+                dst.copy_(buf, non_blocking=True)
 
 
 def _validity(n_valid, capacity, device) -> torch.Tensor:

@@ -264,16 +264,20 @@ def runs(tmp_path_factory):
                 p.communicate()
 
 
+_ONE = {}
+
+
+def one_process_result(name):
+    """Case ``name`` on the port's one-process mesh of the same shape,
+    computed once a process."""
+    if name not in _ONE:
+        _ONE[name] = _run(name, _mesh(CASES[name][0]), slice(None))
+    return _ONE[name]
+
+
 @pytest.fixture(scope="module")
 def one_process():
-    """Each case on the port's one-process mesh of the same shape."""
-    cache = {}
-
-    def get(name):
-        if name not in cache:
-            cache[name] = _run(name, _mesh(CASES[name][0]), slice(None))
-        return cache[name]
-    return get
+    return one_process_result
 
 
 def _gathered(out, name, i, world):
@@ -311,48 +315,52 @@ def test_matches_one_process_mesh(runs, one_process, name, world):
             np.testing.assert_array_equal(np.load(out / f"{name}.{r}.partition.npy"), want)
 
 
-@pytest.fixture(scope="module")
-def jax_side():
-    """The JAX package's output of each case on its virtual 8-device mesh
-    (imported here: the children never import it)."""
+_JAX = {}
+
+
+def jax_result(name):
+    """The JAX package's output of case ``name`` on its virtual 8-device
+    mesh, computed once a process (imported here: the children never
+    import it)."""
+    if name in _JAX:
+        return _JAX[name]
     import jax
     from test_exchange_parity import _emulated_ragged_all_to_all
 
     import rdst_tpu.config as jconfig
     from rdst_tpu import parallel as jp
-    cache = {}
+    shape, inp, entry, kw, conf = CASES[name]
+    words, pays = _inputs(inp)
+    mesh = jp.make_mesh(8) if len(shape) == 1 else jp.make_mesh_2d(*shape)
+    extra = dict(axis=mesh.axis_names) if len(shape) == 2 else {}
+    saved = {k: getattr(jconfig, k) for k in conf}
+    real = jax.lax.ragged_all_to_all
+    try:
+        for k, v in conf.items():
+            setattr(jconfig, k, v)
+        if conf:  # the stage-1 overflow: the ragged branch, emulated
+            jax.lax.ragged_all_to_all = _emulated_ragged_all_to_all
+            extra["use_ragged"] = True
+        if entry == "sort":
+            res = [jp.distributed_sort(words, pays, mesh=mesh, **extra, **kw)]
+        elif entry == "auto":
+            res = [jp.distributed_sort_auto(words, pays, mesh=mesh, **extra, **kw)]
+        else:
+            first = jp.distributed_sort(words, pays, mesh=mesh, split_uniform=False,
+                                        return_partition=True, **kw)
+            ow, op = _inputs("other")
+            res = [first[:3], jp.partition_exchange(ow, op, first[3], mesh=mesh, **kw)]
+    finally:
+        jax.lax.ragged_all_to_all = real
+        for k, v in saved.items():
+            setattr(jconfig, k, v)
+    _JAX[name] = res
+    return res
 
-    def get(name):
-        if name in cache:
-            return cache[name]
-        shape, inp, entry, kw, conf = CASES[name]
-        words, pays = _inputs(inp)
-        mesh = jp.make_mesh(8) if len(shape) == 1 else jp.make_mesh_2d(*shape)
-        extra = dict(axis=mesh.axis_names) if len(shape) == 2 else {}
-        saved = {k: getattr(jconfig, k) for k in conf}
-        real = jax.lax.ragged_all_to_all
-        try:
-            for k, v in conf.items():
-                setattr(jconfig, k, v)
-            if conf:  # the stage-1 overflow: the ragged branch, emulated
-                jax.lax.ragged_all_to_all = _emulated_ragged_all_to_all
-                extra["use_ragged"] = True
-            if entry == "sort":
-                res = [jp.distributed_sort(words, pays, mesh=mesh, **extra, **kw)]
-            elif entry == "auto":
-                res = [jp.distributed_sort_auto(words, pays, mesh=mesh, **extra, **kw)]
-            else:
-                first = jp.distributed_sort(words, pays, mesh=mesh, split_uniform=False,
-                                            return_partition=True, **kw)
-                ow, op = _inputs("other")
-                res = [first[:3], jp.partition_exchange(ow, op, first[3], mesh=mesh, **kw)]
-        finally:
-            jax.lax.ragged_all_to_all = real
-            for k, v in saved.items():
-                setattr(jconfig, k, v)
-        cache[name] = res
-        return res
-    return get
+
+@pytest.fixture(scope="module")
+def jax_side():
+    return jax_result
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -443,22 +451,34 @@ _JAX_SCRIPT = re.compile(r"^\s*(import|from)\s+scripts(\.(?!torch_)\w+|\s+import
                          re.M)
 
 
+# the test files that run as gloo children: their parents import JAX inside
+# functions the children never call, so only their top level counts
+_CHILDREN = ("tests/test_torch_distributed.py", "tests/test_torch_dtable_distributed.py",
+             "tests/test_torch_ranks_cards.py")
+
+
 @pytest.mark.parametrize("where", [
     "rdst_tpu_torch", "chip_smoke.py", "scripts/torch_bench_suite.py",
     "scripts/torch_bench_single_algo.py", "scripts/torch_timings.py",
     "scripts/torch_capacity_study.py", "scripts/torch_bench_mesh.py",
     "scripts/torch_suite_steps.py", "fixtures/torch_consumer.py", "torch_bench.py",
-    "torch_graft_entry.py"])
+    "torch_graft_entry.py", *_CHILDREN])
 def test_port_imports_no_jax(where):
     """No module of the port, not ``chip_smoke.py``, none of the port's
     harnesses, its consumer fixture or its root entry points imports JAX,
     the JAX package (``rdst_tpu``; ``rdst_tpu_torch`` is the port), a JAX
-    script or a JAX root entry point."""
+    script or a JAX root entry point; nor does the top level of a test file
+    that runs as a child, or of a test module it imports."""
     path = ROOT / where
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
     assert files
     for f in files:
         text = f.read_text()
+        if where in _CHILDREN:
+            tops = re.findall(r"^(?:import|from)\s+(test_\w+)", text, re.M)
+            files.extend(ROOT / "tests" / f"{m}.py" for m in tops
+                         if ROOT / "tests" / f"{m}.py" not in files)
+            text = "\n".join(x for x in text.splitlines() if not x[:1].isspace())
         hits = _IMPORT.findall(text) + _JAX_SCRIPT.findall(text)
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
 

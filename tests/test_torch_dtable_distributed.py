@@ -259,15 +259,20 @@ def _reassembled(runs, name, world):
     return Table(cols, device="cpu"), recs[0]["count"]
 
 
+_ONE = {}
+
+
+def one_process_result(name):
+    """Case ``name`` on the port's one-process mesh of the same shape,
+    computed once a process."""
+    if name not in _ONE:
+        _ONE[name] = _run(name, _mesh(CASES[name][0]))
+    return _ONE[name]
+
+
 @pytest.fixture(scope="module")
 def one_process():
-    cache = {}
-
-    def get(name):
-        if name not in cache:
-            cache[name] = _run(name, _mesh(CASES[name][0]))
-        return cache[name]
-    return get
+    return one_process_result
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -287,38 +292,40 @@ def test_matches_one_process_mesh(runs, one_process, name, world):
     _same(want, (got[0], np.asarray(got[1])))
 
 
-@pytest.fixture(scope="module")
-def jax_side():
-    """Each case on the JAX package's virtual 8-device mesh (imported here:
-    the children never import it)."""
+_JAX = {}
+
+
+def jax_result(name):
+    """Case ``name`` on the JAX package's virtual 8-device mesh, computed
+    once a process (imported here: the children never import it)."""
+    if name in _JAX:
+        return _JAX[name]
     import rdst_tpu.config as jconfig
     from rdst_tpu import parallel as jp
     from rdst_tpu.parallel import dtable as jd
     from rdst_tpu.table import Table as JTable
-    cache = {}
+    shape, op, inp, args, kw, conf = CASES[name]
+    tables, mask = _inputs(inp)
+    mesh = jp.make_mesh(8) if len(shape) == 1 else jp.make_mesh_2d(*shape)
+    if len(shape) == 2:
+        kw = dict(kw, axis=mesh.axis_names)
+    args = [mask if a == "mask" else a for a in args]
+    saved = {k: getattr(jconfig, k) for k in conf}
+    try:
+        for k, v in conf.items():
+            setattr(jconfig, k, v)
+        _JAX[name] = getattr(jd, op)(*[JTable(t) for t in tables], *args, mesh=mesh, **kw)
+    except OverflowError as e:
+        _JAX[name] = e
+    finally:
+        for k, v in saved.items():
+            setattr(jconfig, k, v)
+    return _JAX[name]
 
-    def get(name):
-        if name in cache:
-            return cache[name]
-        shape, op, inp, args, kw, conf = CASES[name]
-        tables, mask = _inputs(inp)
-        mesh = jp.make_mesh(8) if len(shape) == 1 else jp.make_mesh_2d(*shape)
-        if len(shape) == 2:
-            kw = dict(kw, axis=mesh.axis_names)
-        args = [mask if a == "mask" else a for a in args]
-        saved = {k: getattr(jconfig, k) for k in conf}
-        try:
-            for k, v in conf.items():
-                setattr(jconfig, k, v)
-            cache[name] = getattr(jd, op)(*[JTable(t) for t in tables], *args,
-                                          mesh=mesh, **kw)
-        except OverflowError as e:
-            cache[name] = e
-        finally:
-            for k, v in saved.items():
-                setattr(jconfig, k, v)
-        return cache[name]
-    return get
+
+@pytest.fixture(scope="module")
+def jax_side():
+    return jax_result
 
 
 @pytest.mark.parametrize("world", [2, 4])

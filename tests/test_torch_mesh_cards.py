@@ -28,6 +28,7 @@ from rdst_tpu.parallel import dtable as jd
 from rdst_tpu.table import Table as JTable
 from rdst_tpu_torch import parallel as tp
 from rdst_tpu_torch.parallel import dtable as td
+from rdst_tpu_torch.parallel import mesh as tmesh
 from rdst_tpu_torch.parallel import remote_dma as rd
 from rdst_tpu_torch.table import Table
 from test_torch_dtable import _same as _same_table
@@ -339,11 +340,18 @@ def test_cards_of_a_mesh():
 
 
 @pytest.mark.parametrize("case", ["not_dividing", "not_dividing_2d", "mixed", "meta",
-                                  "empty", "processes"])
+                                  "empty", "processes", "nccl_card"])
 def test_mesh_errors_raise_before_any_work(monkeypatch, case):
     """K not dividing the shards, mixed or unsupported device types, no
-    card, and ``devices`` while a process group of several ranks is up all
-    raise from the constructor."""
+    card, and under NCCL a first card that is not the current CUDA device
+    all raise from the constructor.  ``devices`` while a process group of
+    several ranks is up places the rank's block of shards on its cards."""
+    if case in ("processes", "nccl_card"):  # rank 1 of a 2-rank group
+        monkeypatch.setattr(dist, "is_initialized", lambda: True)
+        monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
+        monkeypatch.setattr(dist, "get_rank", lambda *a: 1)
+        monkeypatch.setattr(dist, "get_backend",
+                            lambda *a: "gloo" if case == "processes" else "nccl")
     if case == "not_dividing":
         with pytest.raises(ValueError, match="evenly over 3 cards"):
             tp.make_mesh(8, devices=_cards(3))
@@ -359,14 +367,28 @@ def test_mesh_errors_raise_before_any_work(monkeypatch, case):
     elif case == "empty":
         with pytest.raises(ValueError):
             tp.make_mesh(8, devices=[])
-    else:
-        monkeypatch.setattr(dist, "is_initialized", lambda: True)
-        monkeypatch.setattr(dist, "get_world_size", lambda *a: 2)
-        monkeypatch.setattr(dist, "get_rank", lambda *a: 0)
-        monkeypatch.setattr(dist, "get_backend", lambda *a: "gloo")
-        with pytest.raises(NotImplementedError, match="ranks that each hold several cards"):
-            tp.make_mesh(8, devices=_cards(2))
+    elif case == "processes":
+        m = tp.make_mesh(8, devices=_cards(2))
+        assert m.processes and m.world == 2 and list(m.shards) == [4, 5, 6, 7]
+        assert m.per_card == 2 and [m.card_of(s) for s in m.shards] == [0, 0, 1, 1]
+        assert list(m.each()) == [(0, 0), (1, 0), (2, 1), (3, 1)]
+        assert m.comm_device == torch.device("cpu") and m.owner(3) == 0
+        m2 = tp.make_mesh_2d(2, 4, devices=_cards(4))  # one host row, a chip a card
+        assert list(m2.shards) == [4, 5, 6, 7] and m2.per_card == 1
+        assert [m2.card_of(s) for s in m2.shards] == [0, 1, 2, 3]
+        assert list(m2.each()) == [(i, i) for i in range(4)]
+        assert m2.spans(m2.groups("host")) and not m2.spans(m2.groups("chip"))
+        with pytest.raises(ValueError, match="evenly over 8 cards"):
+            tp.make_mesh(8, devices=_cards(8))  # 4 shards a rank
         assert tp.make_mesh(8, device="cpu").processes  # one card a rank still works
+    else:  # NCCL: the rank's first card carries the communicator
+        with pytest.raises(ValueError, match="current CUDA device"):
+            tp.make_mesh(8, devices=_cards(2))
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+        with pytest.raises(ValueError, match="current CUDA device"):
+            tmesh.Mesh((8,), ("shard",), torch.device("cuda", 1))
+        m = tmesh.Mesh((8,), ("shard",), torch.device("cuda", 0))
+        assert m.comm_device == torch.device("cuda", 0) and list(m.shards) == [4, 5, 6, 7]
 
 
 def test_per_card_input_blocks_are_checked():
