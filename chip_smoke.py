@@ -143,6 +143,21 @@ Phases, each printing its own lines:
          its launches and its shuffle sorts' routes; each child holds every
          kernel shape it launched against its plain version, as the
          harness children do;
+       - the acceptance phase, each in a fresh child, one at a time
+         (``ACCEPTANCE_RUNS``): ``scripts/torch_acceptance.py``, the JAX
+         package's eleven acceptance checks at their sizes (u32 and u64 at
+         50M, 20M u32, 20M u64 stable key-value, 20M f64 with NaN and Inf,
+         Zipf 10M, u64 2^23 stable key-value, a (u16, f32) struct key at 4M,
+         20M u64 on the low-memory plan with the gate forced, u64 2^27, and
+         the distributed sort on a 1-shard mesh at 2^22), numpy in and out
+         through the default dispatcher, each bit-equal to its numpy oracle,
+         its results written to ``build/ACCEPT_torch_h100.json``; then
+         ``scripts/torch_floor_table.py``, five shapes (2^25 x 2 keys, 10M x
+         1 key, 10M 2 keys + payload unstable and stable, 10M u16 + u32 key
+         + payload stable), each printing the dispatcher's time, the fused
+         executor's raw, ``torch.sort``'s on the same planes, the bound and
+         the executor's floor in ns per element; each child holds every
+         kernel shape it launched against its plain version;
   4. one JSON line of the kernels, then the result line.  Its times are
      those of each kernel's most-launched shape on the shuffle (B2-B5), of
      B6 at the stable run's exchange, and of B1 at 2^25 x 2 words.
@@ -2543,6 +2558,47 @@ def entry_phase(launches):
           f"exited 0 on the card in {time.perf_counter() - t0:.1f} s (one at a time)")
 
 
+# the acceptance phase's children, one at a time: (the script and its
+# arguments, the kernels its run must launch)
+ACCEPTANCE_RUNS = [
+    (["scripts/torch_acceptance.py", "--json", "build/ACCEPT_torch_h100.json"],
+     _SORTS + ("merge_stage", "merge_tail")),
+    (["scripts/torch_floor_table.py"], _SORTS),
+]
+ACCEPTANCE_CHECKS = 11  # tpu_acceptance.py's checks
+_FLOOR_ROW = re.compile(r"^\| (?!shape )(.+?) \| ((?:[0-9.]+ \| ){5})")
+
+
+def acceptance_phase(launches):
+    """``scripts/torch_acceptance.py`` (the JAX package's acceptance checks
+    at their sizes, numpy in and out through the default dispatcher) and
+    ``scripts/torch_floor_table.py`` (five shapes: the dispatcher, the fused
+    executor raw, ``torch.sort`` on the same planes, the bound and the
+    executor's floor), each in a fresh child under :func:`recorded_child`,
+    one at a time.  Every check must pass, and the floor table must print
+    its five rows with every column above 0; each child holds every kernel
+    shape it launched against its plain version."""
+    t0 = time.perf_counter()
+    (args, need), (floor_args, floor_need) = ACCEPTANCE_RUNS
+    out, _ = _entry_child(["--harness", *args], "torch_acceptance.py", need, launches)
+    passed = [line for line in out if line.startswith("PASS ")]
+    if len(passed) != ACCEPTANCE_CHECKS or "ALL OK" not in out:
+        raise AssertionError(f"torch_acceptance.py: {len(passed)} checks passed of "
+                             f"{ACCEPTANCE_CHECKS}")
+    seconds = sum(float(re.search(r"\(([0-9.]+) s e2e\)$", line).group(1))
+                  for line in passed)
+    print(f"acceptance: {len(passed)} checks passed, {seconds:.3f} s in the port's "
+          f"calls (numpy in and out), ALL OK")
+    out, _ = _entry_child(["--harness", *floor_args], "torch_floor_table.py", floor_need,
+                          launches)
+    rows = [m for m in map(_FLOOR_ROW.match, out) if m]
+    if len(rows) != 5 or any(float(v) <= 0 for m in rows
+                             for v in m.group(2).split(" | ")[:5]):
+        raise AssertionError(f"torch_floor_table.py: rows {[m.group(0) for m in rows]}")
+    print(f"acceptance phase: both scripts exited 0 on the card in "
+          f"{time.perf_counter() - t0:.1f} s (one at a time)")
+
+
 def main() -> int:
     if sys.argv[1:] == ["--trace"]:
         return trace_child()
@@ -2978,6 +3034,7 @@ def main() -> int:
     multiprocess_phase(launches)
     harness_phase(launches)
     entry_phase(launches)
+    acceptance_phase(launches)
     print(f"launches on the paths: {launches}")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

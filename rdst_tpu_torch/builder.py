@@ -166,7 +166,7 @@ class RadixSortBuilder:
         decoders = [(len(words), decode) for words, decode in payload_info]
         del nk, payload_words, payload_info
         if want_numpy:
-            sorted_keys = _keys.denormalize_host(out_nk)
+            sorted_keys = _keys.denormalize_host(out_nk, like=data)
         else:
             sorted_keys = _keys.denormalize(out_nk)
         if not self._payloads:

@@ -219,6 +219,13 @@ def _normalize_byte_array(x: torch.Tensor) -> tuple[tuple[torch.Tensor, ...], in
     return tuple(P.narrow(words[:, i].contiguous(), _U32) for i in range(n_words)), nb
 
 
+def _bf16_tensor(x: np.ndarray, device) -> torch.Tensor:
+    """A numpy bfloat16 array as a ``torch.bfloat16`` tensor on ``device``,
+    by its bits: the array's dtype needs no import to be read this way."""
+    bits = torch.from_numpy(np.ascontiguousarray(x).view(np.int16))
+    return bits.to(as_device(device)).view(torch.bfloat16)
+
+
 def _to_tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
@@ -236,7 +243,9 @@ def normalize(x, *, composite: bool = False, device="cuda") -> NormalizedKeys:
             hi, lo = _numpy_u64_words(x)
             words = tuple(torch.from_numpy(w).to(dev) for w in (hi, lo))
             return NormalizedKeys(words, 8, ("dtype", _torch_dtype(x.dtype)))
-        if x.dtype.kind not in "uif" or x.dtype.itemsize > 8:
+        if x.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: kind "V"
+            x = _bf16_tensor(x, device)
+        elif x.dtype.kind not in "uif" or x.dtype.itemsize > 8:
             raise TypeError(f"unsupported key dtype {x.dtype}")
     t = _to_tensor(x, device)
     if t.ndim == 2 and t.dtype == torch.uint8:
@@ -288,19 +297,28 @@ def denormalize(nk: NormalizedKeys):
     return _denormalize_impl(nk.words, nk.n_bytes, nk.meta)
 
 
-def denormalize_host(nk: NormalizedKeys):
+def denormalize_host(nk: NormalizedKeys, like=None):
     """Invert :func:`normalize` and return numpy arrays on the host.  The
     inverse runs on the words' device and only its result is copied: for
     2^25 u64 keys that took 93 ms against 621 ms for copying the words and
-    inverting them on the host CPU (NVIDIA H100 80GB HBM3, 700 W; PERF.md)."""
-    return _to_numpy(_denormalize_impl(nk.words, nk.n_bytes, nk.meta))
+    inverting them on the host CPU (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+
+    ``like``: the keys as the caller gave them (an array, or a sequence of
+    fields).  A bfloat16 key comes back as the numpy dtype of its
+    counterpart there (ml_dtypes' bfloat16), its bits viewed as it; numpy
+    itself has no bfloat16, so without one it raises ``TypeError``."""
+    return _to_numpy(_denormalize_impl(nk.words, nk.n_bytes, nk.meta), like)
 
 
-def _to_numpy(x):
+def _to_numpy(x, like=None):
     if isinstance(x, tuple):
-        return tuple(_to_numpy(v) for v in x)
+        likes = like if isinstance(like, (list, tuple)) else (None,) * len(x)
+        return tuple(_to_numpy(v, lk) for v, lk in zip(x, likes))
     if x.dtype == torch.bfloat16:
-        raise TypeError("bfloat16 keys have no numpy dtype; use denormalize")
+        dt = getattr(like, "dtype", None)
+        if not isinstance(dt, np.dtype) or dt.name != "bfloat16":
+            raise TypeError("bfloat16 keys have no numpy dtype; use denormalize")
+        return x.view(torch.int16).cpu().numpy().view(dt)
     return x.cpu().numpy()
 
 

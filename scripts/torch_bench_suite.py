@@ -56,13 +56,18 @@ from rdst_tpu_torch.tuner import Algorithm, TuningParams  # noqa: E402
 
 #: The rehash constant of bench_suite.py (odd, so XOR is a bijection).
 SCRAMBLE = 0xB5A93E6B
-_SCRAMBLE_I32 = SCRAMBLE - (1 << 32)  # the same bits as an int32
 _I64_MIN = -(1 << 63)
 
 
 def _xor(w: torch.Tensor) -> torch.Tensor:
-    # torch's uint32 has no XOR kernel: XOR the same-width signed view
-    return (P.sview(w) ^ _SCRAMBLE_I32).view(w.dtype)
+    """``w`` XOR the constant cut to its width (floor_table.py's u16 plane
+    takes the low 16 bits).  torch's unsigned types have no XOR kernel, so
+    the same-width signed view takes the same bits as a signed value."""
+    bits = 8 * w.dtype.itemsize
+    c = SCRAMBLE & ((1 << bits) - 1)
+    if c >> (bits - 1):
+        c -= 1 << bits
+    return (P.sview(w) ^ c).view(w.dtype)
 
 
 def xor_scramble(ws):

@@ -4,7 +4,9 @@ One chained step of ``scripts/torch_bench_suite.py``'s c1 (10M u32) and of
 its c2 stable (10M u64 + u32 payload), three times each, under
 ``torch.profiler``: the step's CUDA-event time, the host's time to enqueue
 it, and the kernels' device time by name, so the card's busy share of the
-step.  Then ``engine.sort_words`` of uniform u32 keys at 2^20..2^23 (the
+step; then the same for the floor table's fused raw step on the same
+planes (``torch_floor_table.fused_step``: the fused executor alone, no
+dispatcher).  Then ``engine.sort_words`` of uniform u32 keys at 2^20..2^23 (the
 timings harness's call): CUDA-event time, enqueue time and the port's
 kernel launches.  Needs a card.
 
@@ -28,6 +30,7 @@ from rdst_tpu_torch.engine import sort_words  # noqa: E402
 from rdst_tpu_torch.ops.histogram import multi_level_histogram  # noqa: E402
 from rdst_tpu_torch.sorter import Sorter  # noqa: E402
 from scripts.torch_bench_suite import dispatcher_step, make_configs  # noqa: E402
+from scripts.torch_floor_table import fused_step  # noqa: E402
 
 
 def timed(fn):
@@ -55,6 +58,24 @@ def kernels(prof):
                       for k in top))
 
 
+def chained(label, step, args):
+    """Three chained calls of ``step`` after three warm ones, each timed
+    and profiled alone."""
+    state = [args]
+    for _ in range(3):  # warm
+        state[0] = step(state[0])
+
+    def one():
+        state[0] = step(state[0])
+
+    for rep in range(3):
+        wall, enqueue, prof = timed(one)
+        busy, top = kernels(prof)
+        print(f"{label} step {rep}: {wall:.4f} ms (CUDA events, under the "
+              f"profiler), enqueue {enqueue:.4f} ms, kernels {busy:.4f} ms "
+              f"({busy / wall:.1%} busy); {top}", flush=True)
+
+
 def main():
     dev = rkeys.as_device("cuda")
     configs = make_configs(np.random.default_rng(0), 10_000_000, {"1", "2"})
@@ -63,19 +84,8 @@ def main():
         ps = [torch.from_numpy(p).to(dev) for p in pays]
         hist = multi_level_histogram(ws, n_bytes)
         step = dispatcher_step(len(ws), n_bytes, stable, hist, Sorter(), scramble)
-        state = [tuple(ws) + tuple(ps)]
-        for _ in range(3):  # warm
-            state[0] = step(state[0])
-
-        def one():
-            state[0] = step(state[0])
-
-        for rep in range(3):
-            wall, enqueue, prof = timed(one)
-            busy, top = kernels(prof)
-            print(f"{metric} step {rep}: {wall:.4f} ms (CUDA events, under the "
-                  f"profiler), enqueue {enqueue:.4f} ms, kernels {busy:.4f} ms "
-                  f"({busy / wall:.1%} busy); {top}", flush=True)
+        chained(metric, step, tuple(ws) + tuple(ps))
+        chained(f"{metric} fused raw", fused_step(len(ws), stable), tuple(ws) + tuple(ps))
     for e in range(20, 24):
         x = [P.narrow(torch.randint(0, 1 << 32, (1 << e,), device=dev, dtype=torch.int64),
                       torch.uint32)]

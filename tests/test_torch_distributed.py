@@ -461,7 +461,8 @@ _CHILDREN = ("tests/test_torch_distributed.py", "tests/test_torch_dtable_distrib
     "rdst_tpu_torch", "chip_smoke.py", "scripts/torch_bench_suite.py",
     "scripts/torch_bench_single_algo.py", "scripts/torch_timings.py",
     "scripts/torch_capacity_study.py", "scripts/torch_bench_mesh.py",
-    "scripts/torch_suite_steps.py", "fixtures/torch_consumer.py", "torch_bench.py",
+    "scripts/torch_suite_steps.py", "scripts/torch_acceptance.py",
+    "scripts/torch_floor_table.py", "fixtures/torch_consumer.py", "torch_bench.py",
     "torch_graft_entry.py", *_CHILDREN])
 def test_port_imports_no_jax(where):
     """No module of the port, not ``chip_smoke.py``, none of the port's

@@ -405,7 +405,8 @@ def test_consumer_fixture():
 
 SCRIPTS = ["scripts/torch_bench_suite.py", "scripts/torch_bench_single_algo.py",
            "scripts/torch_timings.py", "scripts/torch_capacity_study.py",
-           "scripts/torch_bench_mesh.py", "fixtures/torch_consumer.py"]
+           "scripts/torch_bench_mesh.py", "fixtures/torch_consumer.py",
+           "scripts/torch_acceptance.py", "scripts/torch_floor_table.py"]
 
 
 @pytest.fixture(scope="module")
