@@ -136,10 +136,19 @@ def test_last_step_check_rejects_a_wrong_sort(monkeypatch):
 
 
 @pytest.mark.parametrize("donated", [False, True])
-def test_bench_functions_run_and_check(donated, capsys):
+def test_bench_functions_run_and_check(donated, capsys, monkeypatch):
+    """On a scripted host clock the rate is exactly bench.py's formula,
+    ``n / ((t_many - t_once) / (iters - 1))``; a real clock around one
+    sub-millisecond step can read a difference of 0 or less."""
+    readings = [10.0, 10.5, 20.0, 21.25]  # t0, t0 + t_once, t0', t0' + t_many
+    clock = iter(readings)
+    monkeypatch.setattr(tb.time, "perf_counter", lambda: next(clock))
     fn = tb._bench_sort_words_donated if donated else tb._bench_sort_words
-    kps = fn(1 << 12, n_words=2, iters=2, device="cpu")
-    assert kps > 0
+    n, iters = 1 << 12, 2
+    kps = fn(n, n_words=2, iters=iters, device="cpu")
+    assert next(clock, None) is None  # every reading taken
+    t_once, t_many = readings[1] - readings[0], readings[3] - readings[2]
+    assert kps == n / ((t_many - t_once) / (iters - 1))
     assert capsys.readouterr().err.count("bit-equal to torch.sort") == 1
 
 
