@@ -1,0 +1,9 @@
+"""Card idle time per call in the traced stretch, ms, while the host was in
+the plans (``rdst.sorter.run``, ``rdst.histogram``, ``rdst.tuner.*``,
+``rdst.plan.*``): each idle gap goes to the innermost program span that
+is not ``rdst.sync.*`` at its midpoint (``bench_spans``)."""
+import bench_spans
+
+
+def read(run):
+    return bench_spans.idle_ms_per_call(run, "plans")

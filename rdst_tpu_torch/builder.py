@@ -35,6 +35,7 @@ from rdst_tpu_torch.tuner import (
     StandardTuner,
     Tuner,
 )
+from rdst_tpu_torch.utils.trace import span, traced
 
 __all__ = [
     "RadixSortBuilder",
@@ -135,8 +136,10 @@ class RadixSortBuilder:
             return keys_out, out_payloads
         return keys_out
 
+    @traced("sort")
     def sort(self):
-        """Run the sort; returns sorted keys (and payloads if provided)."""
+        """Run the sort; returns sorted keys (and payloads if provided).
+        The whole call is the ``rdst.sort`` span (``utils.trace``)."""
         data = self._data
         fields = data if isinstance(data, (list, tuple)) else [data]
         want_numpy = any(isinstance(f, np.ndarray) for f in fields)
@@ -177,8 +180,14 @@ class RadixSortBuilder:
             out_payloads.append(decode(out_payload_words[i: i + k]))
             i += k
         if want_numpy:
-            out_payloads = [p.cpu().numpy() for p in out_payloads]
+            out_payloads = [_payload_to_numpy(p) for p in out_payloads]
         return sorted_keys, tuple(out_payloads)
+
+
+def _payload_to_numpy(p: torch.Tensor) -> np.ndarray:
+    """A sorted payload's copy back: the ``rdst.sync.to_numpy`` span."""
+    with span("sync.to_numpy"):
+        return p.cpu().numpy()
 
 
 def _host_fold(data: np.ndarray) -> np.ndarray:

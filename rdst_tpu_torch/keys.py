@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from rdst_tpu_torch import _planes as P
+from rdst_tpu_torch.utils.trace import span, traced
 
 __all__ = [
     "NormalizedKeys",
@@ -223,15 +224,24 @@ def _bf16_tensor(x: np.ndarray, device) -> torch.Tensor:
     """A numpy bfloat16 array as a ``torch.bfloat16`` tensor on ``device``,
     by its bits: the array's dtype needs no import to be read this way."""
     bits = torch.from_numpy(np.ascontiguousarray(x).view(np.int16))
-    return bits.to(as_device(device)).view(torch.bfloat16)
+    return _upload(bits, device).view(torch.bfloat16)
 
 
 def _to_tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
-    return torch.from_numpy(np.ascontiguousarray(x)).to(as_device(device))
+    return _upload(torch.from_numpy(np.ascontiguousarray(x)), device)
 
 
+def _upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor made from numpy, on ``device``: the ``rdst.copy.h2d``
+    span."""
+    dev = as_device(device)
+    with span("copy.h2d"):
+        return t.to(dev)
+
+
+@traced("keys.normalize")
 def normalize(x, *, composite: bool = False, device="cuda") -> NormalizedKeys:
     """Normalize a key array (or a sequence of fields, most significant
     first) to word planes.  Numpy input goes to ``device``."""
@@ -240,8 +250,9 @@ def normalize(x, *, composite: bool = False, device="cuda") -> NormalizedKeys:
     if isinstance(x, np.ndarray):
         if x.ndim == 1 and x.dtype.itemsize == 8 and x.dtype.kind in "uif":
             dev = as_device(device)
-            hi, lo = _numpy_u64_words(x)
-            words = tuple(torch.from_numpy(w).to(dev) for w in (hi, lo))
+            with span("keys.split_host"):
+                hi, lo = _numpy_u64_words(x)
+            words = tuple(_upload(torch.from_numpy(w), dev) for w in (hi, lo))
             return NormalizedKeys(words, 8, ("dtype", _torch_dtype(x.dtype)))
         if x.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: kind "V"
             x = _bf16_tensor(x, device)
@@ -292,11 +303,13 @@ def _float_unfold(t: torch.Tensor, nbits: int) -> torch.Tensor:
     return t ^ mask
 
 
+@traced("keys.denormalize")
 def denormalize(nk: NormalizedKeys):
     """Invert :func:`normalize` on the words' device (torch tensors)."""
     return _denormalize_impl(nk.words, nk.n_bytes, nk.meta)
 
 
+@traced("keys.denormalize")
 def denormalize_host(nk: NormalizedKeys, like=None):
     """Invert :func:`normalize` and return numpy arrays on the host.  The
     inverse runs on the words' device and only its result is copied: for
@@ -318,8 +331,14 @@ def _to_numpy(x, like=None):
         dt = getattr(like, "dtype", None)
         if not isinstance(dt, np.dtype) or dt.name != "bfloat16":
             raise TypeError("bfloat16 keys have no numpy dtype; use denormalize")
-        return x.view(torch.int16).cpu().numpy().view(dt)
-    return x.cpu().numpy()
+        return _host_copy(x.view(torch.int16)).view(dt)
+    return _host_copy(x)
+
+
+def _host_copy(x: torch.Tensor) -> np.ndarray:
+    """``x`` as numpy: the ``rdst.sync.to_numpy`` span."""
+    with span("sync.to_numpy"):
+        return x.cpu().numpy()
 
 
 def _denormalize_impl(words, n_bytes: int, meta: tuple):

@@ -41,6 +41,7 @@ import torch
 from rdst_tpu_torch import _build
 from rdst_tpu_torch import _planes as P
 from rdst_tpu_torch import config
+from rdst_tpu_torch.utils.trace import span, traced
 
 __all__ = [
     "fused_sort", "fused_sort_available", "pick_blocks", "tail_call",
@@ -445,6 +446,7 @@ def fused_sort_available(
     return len(words) + len(payloads) + 2 <= MAX_PLANES
 
 
+@traced("fused_sort")
 def fused_sort(
     words: Sequence[torch.Tensor],
     payloads: Sequence[torch.Tensor] = (),
@@ -456,7 +458,10 @@ def fused_sort(
     """Sort key word planes (most significant first) + payload planes.
 
     ``row`` and ``block`` override the phase-0 row length and the small
-    block (tests use them to run every kernel shape at small n)."""
+    block (tests use them to run every kernel shape at small n).  The call
+    is the ``rdst.fused_sort`` span; each piece's phase 0 and B2/B3 trips,
+    and the pieces' merge, are its ``phase0``, ``network`` and ``merge``
+    children."""
     words = list(words)
     payloads = list(payloads)
     for p in words:
@@ -554,7 +559,8 @@ def fused_sort(
             n_keys = nk_piece
         acc = [P.cat([a, b]) for a, b in zip(acc, pc)]
         la += ln
-        acc = _merge_asc_desc(acc, la, Q, n_keys, blk_b)
+        with span("fused_sort.merge"):
+            acc = _merge_asc_desc(acc, la, Q, n_keys, blk_b)
     return finish(acc)
 
 
@@ -570,33 +576,35 @@ def _core(planes, T, n_keys, blk_s, blk_b, m):
     dev = planes[0].device
 
     # phase 0: alternating-direction rows in one batched sort
-    gid = torch.arange(T, device=dev)
-    flip = ((gid >> log_m) & 1) == 1
-    planes = [
-        P.where(flip, P.complement(p), p) if j < n_keys else p
-        for j, p in enumerate(planes)
-    ]
-    rows = P.lex_sort([p.reshape(T // m, m) for p in planes], n_keys, dim=1)
-    planes = [p.reshape(T) for p in rows]
+    with span("fused_sort.phase0"):
+        gid = torch.arange(T, device=dev)
+        flip = ((gid >> log_m) & 1) == 1
+        planes = [
+            P.where(flip, P.complement(p), p) if j < n_keys else p
+            for j, p in enumerate(planes)
+        ]
+        rows = P.lex_sort([p.reshape(T // m, m) for p in planes], n_keys, dim=1)
+        planes = [p.reshape(T) for p in rows]
 
-    # trip 1: un-flip + every level up to run length blk_s
-    levels = [(l2r, 1 << (l2r - 1)) for l2r in range(log_m + 1, log_bs + 1)]
-    planes = tail_call(planes, T, blk_s, n_keys, levels, unflip_shift=log_m)
+    with span("fused_sort.network"):
+        # trip 1: un-flip + every level up to run length blk_s
+        levels = [(l2r, 1 << (l2r - 1)) for l2r in range(log_m + 1, log_bs + 1)]
+        planes = tail_call(planes, T, blk_s, n_keys, levels, unflip_shift=log_m)
 
-    # larger levels: span trips for strides R..blk_b, then one tail sweep.
-    # The span fan-in keeps pieces at least GRAIN elements long.
-    max_span = max(1, _log2(blk_b // GRAIN))
-    for log_r in range(log_bs, log_t):
-        two_r = 1 << (log_r + 1)
-        hi = log_r
-        while hi >= log_bb:
-            lo = max(log_bb, hi - max_span + 1)
-            planes = span_call(planes, T, 1 << hi, 1 << lo, two_r, blk_b, n_keys)
-            hi = lo - 1
-        planes = tail_call(
-            planes, T, blk_b, n_keys,
-            [(log_r + 1, min(blk_b // 2, 1 << log_r))], None,
-        )
+        # larger levels: span trips for strides R..blk_b, then one tail
+        # sweep.  The span fan-in keeps pieces at least GRAIN elements long.
+        max_span = max(1, _log2(blk_b // GRAIN))
+        for log_r in range(log_bs, log_t):
+            two_r = 1 << (log_r + 1)
+            hi = log_r
+            while hi >= log_bb:
+                lo = max(log_bb, hi - max_span + 1)
+                planes = span_call(planes, T, 1 << hi, 1 << lo, two_r, blk_b, n_keys)
+                hi = lo - 1
+            planes = tail_call(
+                planes, T, blk_b, n_keys,
+                [(log_r + 1, min(blk_b // 2, 1 << log_r))], None,
+            )
     return planes
 
 

@@ -22,6 +22,7 @@ import torch
 
 from rdst_tpu_torch import _build
 from rdst_tpu_torch import _planes as P
+from rdst_tpu_torch.utils.trace import span
 
 RADIX = 256
 MAX_WORDS = 8  # kMaxWords in csrc/histogram.cu: keys of up to 32 bytes
@@ -165,9 +166,13 @@ def unpack(buf: np.ndarray, n_levels: int) -> HistogramResult:
 
 
 def multi_level_histogram(words, n_bytes: int) -> HistogramResult:
-    """All-level histograms + sortedness in one pass; one host copy."""
-    buf = _histogram(list(words), n_bytes).cpu().numpy()
-    return unpack(buf, n_bytes)
+    """All-level histograms + sortedness in one pass; one host copy.  The
+    ``rdst.histogram`` span, the copy its ``rdst.sync.histogram`` child."""
+    with span("histogram"):
+        out = _histogram(list(words), n_bytes)
+        with span("sync.histogram"):
+            buf = out.cpu().numpy()
+        return unpack(buf, n_bytes)
 
 
 def level_histogram(words, level: int) -> torch.Tensor:

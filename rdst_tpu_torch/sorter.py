@@ -29,6 +29,7 @@ from rdst_tpu_torch.tuner import (
     Tuner,
     TuningParams,
 )
+from rdst_tpu_torch.utils.trace import span, traced
 
 __all__ = ["Sorter", "PlanContext", "register_plan", "get_plan"]
 
@@ -73,6 +74,7 @@ class Sorter:
         self.parallel = parallel
         self.tuner = tuner if tuner is not None else StandardTuner()
 
+    @traced("sorter.run")
     def run(
         self,
         nk: NormalizedKeys,
@@ -81,7 +83,9 @@ class Sorter:
         stable: bool = False,
         hist: HistogramResult | None = None,
     ) -> tuple[NormalizedKeys, list[torch.Tensor]]:
-        """Histogram -> tuner -> plan.  ``hist`` may be precomputed."""
+        """Histogram -> tuner -> plan.  ``hist`` may be precomputed.  The
+        call is the ``rdst.sorter.run`` span; the plan body is
+        ``rdst.plan.<Algorithm value>``."""
         words = list(nk.words)
         payloads = list(payloads)
         n = int(words[0].shape[0])
@@ -104,7 +108,8 @@ class Sorter:
                 input_len=n,
                 parent_len=None,
             )
-            algo = self.tuner.pick_algorithm(params, hist.counts[L - 1].tolist())
+            with span("tuner.pick"):
+                algo = self.tuner.pick_algorithm(params, hist.counts[L - 1].tolist())
             if not self.parallel and algo not in SINGLE_PROGRAM_ALGORITHMS:
                 algo = Algorithm.LSB
 
@@ -120,13 +125,14 @@ class Sorter:
         split = _presorted_split(n, hist)
         if algo is Algorithm.MT_OOP:
             split = None
-        if split is not None:
-            _trace_pick(L - 1, f"PresortedMerge[{algo.value}]", n)
-            out_words, out_payloads = _presorted_merge(
-                words, payloads, split, plan, ctx, stable
-            )
-        else:
-            out_words, out_payloads = plan(words, payloads, ctx)
+        with span("plan." + algo.value):
+            if split is not None:
+                _trace_pick(L - 1, f"PresortedMerge[{algo.value}]", n)
+                out_words, out_payloads = _presorted_merge(
+                    words, payloads, split, plan, ctx, stable
+                )
+            else:
+                out_words, out_payloads = plan(words, payloads, ctx)
         return (
             NormalizedKeys(tuple(out_words), nk.n_bytes, nk.meta),
             list(out_payloads),

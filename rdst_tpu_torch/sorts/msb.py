@@ -36,6 +36,7 @@ from rdst_tpu_torch.ops.ragged_concat import ragged_concat_multi
 from rdst_tpu_torch.sorts.comparative import comparative_sort
 from rdst_tpu_torch.sorts.lsb import packed_sort
 from rdst_tpu_torch.tuner import Algorithm, TuningParams
+from rdst_tpu_torch.utils.trace import span
 
 __all__ = ["bucketed_sort"]
 
@@ -139,7 +140,11 @@ def bucketed_sort(
                          .to(torch.int64).reshape(1))
             flagged.append(b)
     del part_key
-    host = torch.cat(fetch).cpu().numpy() if fetch else np.zeros(0, np.int64)
+    if fetch:
+        with span("sync.msb_fetch"):
+            host = torch.cat(fetch).cpu().numpy()
+    else:
+        host = np.zeros(0, np.int64)
     n_edges = RADIX * RADIX + 1 if retune else 0
     single = dict(zip(flagged, host[n_edges:].astype(bool)))
 

@@ -784,6 +784,39 @@ def _plain_calls():
     return {k: v.plain_calls for k, v in _build.KERNELS.items()}
 
 
+def test_every_host_sync_of_the_sort_call_is_named(dev):
+    """No host sync of a 2^25 u64 tensor call goes unnamed: under sync
+    debug mode "warn" it raises as many sync warnings as it records
+    ``rdst.sync.*`` spans (the histogram's readback), and it sorts
+    bit-equal to torch.sort."""
+    import warnings
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(25)
+    x = torch.empty(1 << 25, dtype=torch.int64, device=dev).random_(generator=g)
+    x ^= torch.randint(0, 2, x.shape, dtype=torch.int64, device=dev, generator=g) << 63
+    keys = x.view(torch.uint64)
+    rt.radix_sort_unstable(keys)  # kernels loaded, workspaces made
+    torch.cuda.synchronize()
+    cpu = [torch.profiler.ProfilerActivity.CPU]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with torch.profiler.profile(activities=cpu) as prof:
+                out = rt.radix_sort_unstable(keys)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    named = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.name().startswith("rdst.sync.")]
+    assert named == ["rdst.sync.histogram"]
+    assert len(syncs) == len(named), syncs
+    flip = -(1 << 63)
+    assert torch.equal(out.view(torch.int64), torch.sort(x ^ flip).values ^ flip)
+
+
 @pytest.mark.parametrize("n", [1 << 10, 1 << 22])
 def test_jit_api_sort_has_no_host_sync(dev, n):
     """``jit_api.sort`` and ``argsort`` on CUDA tensors under sync debug
