@@ -174,9 +174,12 @@ Phases, each printing its own lines:
          tests hold to the JAX package's) and its result bit-equal to its
          numpy oracle; the child holds B1 at every length and B2-B5 at
          every shape the cases launched against their plain versions;
-  4. one JSON line of the kernels, then the result line.  Its times are
-     those of each kernel's most-launched shape on the shuffle (B2-B5), of
-     B6 at the stable run's exchange, and of B1 at 2^25 x 2 words.
+  4. the copy-backs of the process's numpy answers by the page-locked
+     block they landed in (recycled or newly pinned, ``_build.COPY_BACKS``)
+     beside the launch counts, then one JSON line of the kernels, then the
+     result line.  Its times are those of each kernel's most-launched shape
+     on the shuffle (B2-B5), of B6 at the stable run's exchange, and of B1
+     at 2^25 x 2 words.
 
 Every check prints the kernel's bound beside its time: the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s, or
@@ -3369,6 +3372,10 @@ def main() -> int:
     acceptance_phase(launches)
     device_flow_phase(launches)
     print(f"launches on the paths: {launches}")
+    backs = _build.COPY_BACKS
+    print(f"numpy copy-backs of this process: {backs}, "
+          f"{backs['recycled'] / (backs['recycled'] + backs['pinned']):.1%} into "
+          "recycled page-locked blocks")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

@@ -8,8 +8,9 @@ Port of ``rdst_tpu/builder.py`` with torch tensors in place of jax arrays:
     idx = argsort(x)
 
 Numpy input goes to ``device`` (default ``"cuda"``; raises when CUDA is
-absent) and comes back as numpy; a tensor sorts on its own device and comes
-back as tensors there.  A small 1-D numpy input (at most
+absent) and comes back as numpy, from the card in page-locked host memory
+(``keys._host_copy``); a tensor sorts on its own device and comes back as
+tensors there.  A small 1-D numpy input (at most
 ``config.host_sort_max`` elements, under a built-in tuner) sorts on the C++
 host runtime instead (``_try_host_sort``, ``native/host.py``), as in the JAX
 package; the limit is 0 by default, since the card was faster at every size
@@ -35,7 +36,7 @@ from rdst_tpu_torch.tuner import (
     StandardTuner,
     Tuner,
 )
-from rdst_tpu_torch.utils.trace import span, traced
+from rdst_tpu_torch.utils.trace import traced
 
 __all__ = [
     "RadixSortBuilder",
@@ -180,14 +181,8 @@ class RadixSortBuilder:
             out_payloads.append(decode(out_payload_words[i: i + k]))
             i += k
         if want_numpy:
-            out_payloads = [_payload_to_numpy(p) for p in out_payloads]
+            out_payloads = [_keys._host_copy(p) for p in out_payloads]
         return sorted_keys, tuple(out_payloads)
-
-
-def _payload_to_numpy(p: torch.Tensor) -> np.ndarray:
-    """A sorted payload's copy back: the ``rdst.sync.to_numpy`` span."""
-    with span("sync.to_numpy"):
-        return p.cpu().numpy()
 
 
 def _host_fold(data: np.ndarray) -> np.ndarray:

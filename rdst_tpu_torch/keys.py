@@ -14,22 +14,25 @@ order:
 
 All transforms are exact bit reinterpretations (``Tensor.view``) plus
 integer arithmetic on int64 upcasts (``_planes.widen``).  int64's ``>>`` is
-arithmetic, so the float fold masks the shifted sign bit.  64-bit numpy
-inputs are folded and split into words on the host, as the JAX package
-does; 64-bit tensors are split on their device.
+arithmetic, so the float fold masks the shifted sign bit.  A 64-bit key,
+numpy or tensor, is folded and split into words on its device: a numpy
+array goes there as it is, in one copy, and is never written.
 
 Numpy input goes to ``device`` (default ``"cuda"``, which raises when CUDA
-is absent); a tensor stays on its own device.
+is absent); a tensor stays on its own device.  A numpy answer of a CUDA
+tensor lands in page-locked memory from torch's caching host allocator
+(:func:`_host_copy`).
 """
 from __future__ import annotations
 
 import dataclasses
-import sys
+import warnings
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from rdst_tpu_torch import _build
 from rdst_tpu_torch import _planes as P
 from rdst_tpu_torch.utils.trace import span, traced
 
@@ -186,23 +189,6 @@ def _normalize_tensor(x: torch.Tensor) -> tuple[tuple[torch.Tensor, ...], int]:
     raise TypeError(f"unsupported key dtype {dt}")
 
 
-def _numpy_u64_words(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """Host-side fold/bias of a 64-bit numpy key into (hi, lo) u32 words.
-    The split itself is a strided copy of the two 32-bit halves."""
-    if not x.dtype.isnative:
-        x = x.astype(x.dtype.newbyteorder("="))
-    u = np.ascontiguousarray(x).view(np.uint64)
-    if x.dtype.kind == "i":
-        u = u ^ np.uint64(1 << 63)
-    elif x.dtype.kind == "f":
-        sign = u >> np.uint64(63)
-        u = (u ^ (sign * np.uint64((1 << 63) - 1))) ^ np.uint64(1 << 63)
-    halves = u.view(np.uint32).reshape(-1, 2)
-    hi, lo = (1, 0) if sys.byteorder == "little" else (0, 1)
-    return (np.ascontiguousarray(halves[:, hi]),
-            np.ascontiguousarray(halves[:, lo]))
-
-
 def _normalize_byte_array(x: torch.Tensor) -> tuple[tuple[torch.Tensor, ...], int]:
     """(n, N) uint8 -> lexicographic big-endian words, left zero-padded."""
     if x.ndim != 2 or x.dtype != torch.uint8:
@@ -228,9 +214,22 @@ def _bf16_tensor(x: np.ndarray, device) -> torch.Tensor:
 
 
 def _to_tensor(x, device) -> torch.Tensor:
+    """A key array as a tensor: a tensor as it is, a numpy array on
+    ``device``.  A contiguous array in native byte order goes there as it
+    is (on the CPU the tensor shares its memory); any other is made so on
+    the host first, in one copy.  No caller writes the tensor it gets, so
+    a read-only array is taken as it is too."""
     if isinstance(x, torch.Tensor):
         return x
-    return _upload(torch.from_numpy(np.ascontiguousarray(x)), device)
+    if not (x.dtype.isnative and x.flags.c_contiguous):
+        x = np.ascontiguousarray(x, dtype=x.dtype.newbyteorder("="))
+    if x.flags.writeable:
+        t = torch.from_numpy(x)
+    else:  # torch warns that a tensor may write it; nothing does
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+            t = torch.from_numpy(x)
+    return _upload(t, device)
 
 
 def _upload(t: torch.Tensor, device) -> torch.Tensor:
@@ -248,12 +247,6 @@ def normalize(x, *, composite: bool = False, device="cuda") -> NormalizedKeys:
     if composite or isinstance(x, (list, tuple)):
         return _normalize_composite(tuple(x), device)
     if isinstance(x, np.ndarray):
-        if x.ndim == 1 and x.dtype.itemsize == 8 and x.dtype.kind in "uif":
-            dev = as_device(device)
-            with span("keys.split_host"):
-                hi, lo = _numpy_u64_words(x)
-            words = tuple(_upload(torch.from_numpy(w), dev) for w in (hi, lo))
-            return NormalizedKeys(words, 8, ("dtype", _torch_dtype(x.dtype)))
         if x.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: kind "V"
             x = _bf16_tensor(x, device)
         elif x.dtype.kind not in "uif" or x.dtype.itemsize > 8:
@@ -336,9 +329,21 @@ def _to_numpy(x, like=None):
 
 
 def _host_copy(x: torch.Tensor) -> np.ndarray:
-    """``x`` as numpy: the ``rdst.sync.to_numpy`` span."""
+    """``x`` as numpy: the ``rdst.sync.to_numpy`` span.  A CUDA tensor is
+    copied into page-locked memory from torch's caching host allocator,
+    which hands a block out again only after the array that held it is
+    freed, so no later call writes into an answer a caller holds.  Each
+    such copy counts in ``_build.COPY_BACKS`` by whether its block was
+    recycled or newly pinned."""
     with span("sync.to_numpy"):
-        return x.cpu().numpy()
+        if x.device.type != "cuda":
+            return x.cpu().numpy()
+        pinned = _build.host_blocks_pinned()
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        grew = _build.host_blocks_pinned() != pinned
+        _build.COPY_BACKS["pinned" if grew else "recycled"] += 1
+        out.copy_(x)
+        return out.numpy()
 
 
 def _denormalize_impl(words, n_bytes: int, meta: tuple):

@@ -16,7 +16,6 @@ The spans of one sort call (children indented under their parent):
 
     rdst.sort                     RadixSortBuilder.sort, the whole call
       rdst.keys.normalize         keys.normalize
-        rdst.keys.split_host      a 64-bit numpy key split into u32 halves
         rdst.copy.h2d             a numpy array's upload
       rdst.sorter.run             Sorter.run
         rdst.histogram            B1 and its readback

@@ -303,6 +303,59 @@ def test_builder_on_cuda_tensors(dev, monkeypatch):
     np.testing.assert_array_equal(p.cpu().numpy(), v[order])
 
 
+def _u64_arrays(count, n=1 << 22, seed=22):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 2**64, size=n, dtype=np.uint64) for _ in range(count)]
+
+
+def test_numpy_answers_are_page_locked(dev):
+    """The keys and the payload of a numpy call on the card come back in
+    page-locked host memory."""
+    (x,) = _u64_arrays(1)
+    v = np.arange(x.size, dtype=np.uint32)
+    ys = rt.radix_sort_unstable(x)
+    ks, (vs,) = rt.sort_key_value(x, [v], stable=True)
+    for a in (ys, ks, vs):
+        assert torch.from_numpy(a).is_pinned()
+    order = np.argsort(x, kind="stable")
+    np.testing.assert_array_equal(ys, x[order])
+    np.testing.assert_array_equal(ks, x[order])
+    np.testing.assert_array_equal(vs, v[order])
+
+
+def test_numpy_answers_held_at_once_share_no_memory(dev):
+    xs = _u64_arrays(4)
+    outs = [rt.radix_sort_unstable(x) for x in xs]
+    for i, a in enumerate(outs):
+        for b in outs[i + 1:]:
+            assert not np.shares_memory(a, b)
+
+
+def test_numpy_answer_held_across_later_calls_is_unchanged(dev):
+    """An answer held while 3 more calls on other arrays copy back (each
+    earlier one freed, so their blocks are recycled) still equals np.sort
+    of its input."""
+    first, *others = _u64_arrays(4)
+    held = rt.radix_sort_unstable(first)
+    for x in others:
+        out = rt.radix_sort_unstable(x)
+        np.testing.assert_array_equal(out, np.sort(x))
+        del out
+    np.testing.assert_array_equal(held, np.sort(first))
+
+
+def test_copy_back_into_a_freed_block_counts_as_recycled(dev):
+    from rdst_tpu_torch import _build
+
+    a, b = _u64_arrays(2)
+    out = rt.radix_sort_unstable(a)
+    del out
+    recycled = _build.COPY_BACKS["recycled"]
+    out = rt.radix_sort_unstable(b)
+    assert _build.COPY_BACKS["recycled"] >= recycled + 1
+    np.testing.assert_array_equal(out, np.sort(b))
+
+
 @pytest.mark.parametrize(
     "n,s,dtypes,n_keys",
     [

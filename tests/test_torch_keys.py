@@ -5,6 +5,8 @@ The same numpy inputs go through ``rdst_tpu.keys.normalize`` and
 Every comparison is exact: words are bit patterns, and denormalized keys
 are compared through their unsigned bit views (NaN payloads included).
 """
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 import rdst_tpu.keys as jk
+import rdst_tpu_torch as rt
 from rdst_tpu_torch import keys as tk
 
 torch.set_num_threads(1)
@@ -105,6 +108,72 @@ def test_byte_array_words(width):
     for a, b in zip(_words(want), _port_words(got)):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(tk.denormalize_host(got), x)
+
+
+def _laid_out(x: np.ndarray, layout: str) -> np.ndarray:
+    """``x``'s values in another memory layout."""
+    if layout == "swapped":
+        return x.astype(x.dtype.newbyteorder("S"))
+    if layout == "strided":
+        wide = np.zeros(2 * x.size, x.dtype)
+        wide[::2] = x
+        return wide[::2]
+    x = x.copy()
+    x.flags.writeable = layout != "readonly"
+    return x
+
+
+def _total_order(x: np.ndarray) -> np.ndarray:
+    """``x`` sorted by its normalized order: floats by the IEEE total
+    order of their bits (-NaN first, +NaN last), integers by value."""
+    if x.dtype.kind != "f":
+        return np.sort(x)
+    u = x.view(np.uint64)
+    folded = np.where(u >> np.uint64(63) == 1, ~u, u | np.uint64(1 << 63))
+    return x[np.argsort(folded, kind="stable")]
+
+
+@pytest.mark.parametrize("layout", ["native", "swapped", "strided", "readonly"])
+@pytest.mark.parametrize("dt", [np.uint64, np.int64, np.float64], ids=str)
+def test_eight_byte_numpy_keys_fold_and_split_on_their_device(dt, layout):
+    """u64, i64 (MIN and MAX among them) and f64 (+-0, +-Inf, NaNs of
+    both signs) in every layout a caller may pass: the words are bit-equal
+    to the JAX package's, the sort (5000 keys: past the host path) is in
+    the normalized order, no warning is raised, and the caller's array is
+    left as it was."""
+    rng = np.random.default_rng(np.dtype(dt).itemsize * 97 + ord(np.dtype(dt).kind))
+    native = np.concatenate([_sample(np.dtype(dt), rng) for _ in range(5)])
+    x = _laid_out(native, layout)
+    before = x.tobytes()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = tk.normalize(x, device="cpu")
+        out = rt.radix_sort_unstable(x, device="cpu")
+    want = jk.normalize(native)
+    assert got.n_bytes == want.n_bytes == 8
+    assert got.meta == ("dtype", tk._torch_dtype(native.dtype))
+    for a, b in zip(_words(want), _port_words(got)):
+        np.testing.assert_array_equal(a, b)
+    assert out.dtype == native.dtype
+    np.testing.assert_array_equal(_bits_view(out), _bits_view(_total_order(native)))
+    assert x.tobytes() == before
+    assert x.flags.writeable == (layout != "readonly")
+
+
+@pytest.mark.parametrize("writeable", [True, False])
+@pytest.mark.parametrize("dt", [np.uint64, np.int64, np.float64], ids=str)
+def test_contiguous_native_keys_upload_without_a_host_copy(dt, writeable, monkeypatch):
+    """On the CPU the tensor that ``normalize`` folds and splits is the
+    caller's array itself, read-only or not."""
+    seen = []
+    split = tk._normalize_tensor
+    monkeypatch.setattr(tk, "_normalize_tensor", lambda t: seen.append(t) or split(t))
+    x = _laid_out(_sample(np.dtype(dt), np.random.default_rng(3)),
+                  "native" if writeable else "readonly")
+    tk.normalize(x, device="cpu")
+    (t,) = seen
+    assert t.device.type == "cpu" and t.data_ptr() == x.ctypes.data
+    assert t.numel() == x.size
 
 
 @pytest.mark.parametrize("level,bits", [(0, 8), (3, 8), (5, 8), (0, 16), (6, 16)])

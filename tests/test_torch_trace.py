@@ -94,7 +94,6 @@ def test_work_profiles_prints_jax_picks(case, rng):
 PARENTS = {
     "rdst.sort": None,
     "rdst.keys.normalize": "rdst.sort",
-    "rdst.keys.split_host": "rdst.keys.normalize",
     "rdst.copy.h2d": "rdst.keys.normalize",
     "rdst.sorter.run": "rdst.sort",
     "rdst.histogram": "rdst.sorter.run",
@@ -108,7 +107,7 @@ PARENTS = {
     "rdst.keys.denormalize": "rdst.sort",
     "rdst.sync.to_numpy": "rdst.keys.denormalize",
 }
-NUMPY_ONLY = {"rdst.keys.split_host", "rdst.copy.h2d", "rdst.sync.to_numpy"}
+NUMPY_ONLY = {"rdst.copy.h2d", "rdst.sync.to_numpy"}
 
 
 @pytest.fixture
