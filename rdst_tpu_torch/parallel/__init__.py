@@ -64,6 +64,7 @@ from rdst_tpu_torch.parallel.shuffle import (
     partition_exchange,
 )
 from rdst_tpu_torch.parallel.dtable import (
+    distributed_densify,
     distributed_filter,
     distributed_group_aggregate,
     distributed_join,
@@ -83,4 +84,5 @@ __all__ = [
     "distributed_filter",
     "distributed_group_aggregate",
     "distributed_join",
+    "distributed_densify",
 ]

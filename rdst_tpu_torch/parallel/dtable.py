@@ -38,7 +38,19 @@ of the aggregate and the join alike; nothing is gathered onto card 0).
 The counts, the group count and the match count stay as on one card.  A
 table in may also be such a list, one ``Table`` per card.  The aggregate
 and the join densify on each card: its shards' valid prefixes,
-concatenated, after one host read of the gathered per-shard counts.
+concatenated, after one host read of the gathered per-shard counts
+(:func:`distributed_densify` does the same for the static-length outputs).
+
+A single table in may have any length: the operators append rows up to a
+multiple of the shards and leave them out of the shuffle (the shuffle's
+``valid`` counts), so a densified output feeds the next operator as it
+is.  The aggregate also takes the static-length outputs' per-shard
+``counts``: the rows past them are left out in the same way.
+
+Each operator's stages are ``torch.profiler`` spans (``utils/trace.py``):
+``rdst.table.encode``, ``rdst.table.filter``, ``rdst.table.aggregate``,
+``rdst.table.join`` and ``rdst.table.densify``, the shuffles'
+``rdst.shuffle`` spans, and one ``rdst.sync.*`` span a host read.
 """
 from __future__ import annotations
 
@@ -57,12 +69,14 @@ from rdst_tpu_torch.parallel.shuffle import (
 )
 from rdst_tpu_torch.table import ops as tops
 from rdst_tpu_torch.table.table import Table
+from rdst_tpu_torch.utils.trace import span, traced
 
 __all__ = [
     "distributed_sort_table",
     "distributed_filter",
     "distributed_group_aggregate",
     "distributed_join",
+    "distributed_densify",
 ]
 
 _M32 = 0xFFFFFFFF
@@ -92,21 +106,39 @@ def _hash_plane(words) -> torch.Tensor:
     return P.narrow(h, torch.uint32)
 
 
-def _on_mesh(table, mesh: Mesh) -> list[Table]:
+def _padded(table: Table, L: int):
+    """``table`` with rows appended up to a multiple of ``L`` shards (at
+    least one row a shard), and each shard's count of the table's own rows,
+    or None where nothing was appended.  The rows appended are zeros, at
+    the end, so each shard's own rows come first."""
+    n = table.n_rows
+    m = max(-(-n // L), 1) * L
+    if m == n:
+        return table, None
+    cols = {}
+    for name in table.column_names:
+        c = table.column(name)
+        cols[name] = P.cat([c, P.fill_like(m - n, 0, c)])
+    b = m // L
+    return Table(cols), [min(max(n - i * b, 0), b) for i in range(L)]
+
+
+def _on_mesh(table, mesh: Mesh):
     """The table's rows split over the mesh's cards in order, card c's on
     card c (copied there on its stream where they lie elsewhere); a list
-    of one table per card passes, each moved to its card."""
+    of one table per card passes, each moved to its card.  Returns (the
+    tables, each local shard's count of rows that take part or None): a
+    single table of any length is padded (:func:`_padded`), a list must
+    split evenly."""
     K = len(mesh.devices)
+    valid = None
     if isinstance(table, (list, tuple)):
         if len(table) != K:
             raise ValueError(f"{len(table)} tables for {K} cards")
         parts = list(table)
     else:
-        n = table.n_rows
-        if n % mesh.n_local:
-            raise ValueError(f"length {n} not divisible by the {mesh.n_local} "
-                             "shards of this process")
-        b = n // K
+        table, valid = _padded(table, mesh.n_local)
+        b = table.n_rows // K
         parts = [table if K == 1 else
                  Table({c: table.column(c)[i * b:(i + 1) * b] for c in table.column_names})
                  for i in range(K)]
@@ -115,7 +147,7 @@ def _on_mesh(table, mesh: Mesh) -> list[Table]:
         with mesh.on(c):
             out.append(t if t.device == dev else
                        Table({name: t.column(name).to(dev) for name in t.column_names}))
-    return out
+    return out, valid
 
 
 def _planes(per_card):
@@ -135,6 +167,7 @@ def _per_card(tables):
     return tables[0] if len(tables) == 1 else tables
 
 
+@traced("table.encode")
 def _encode_table(table: Table, by):
     """Normalize the key columns and encode the rest as u32 payload words."""
     by = [by] if isinstance(by, str) else list(by)
@@ -197,7 +230,7 @@ def distributed_sort_table(
     capacity rows with the global (D,) counts.  On K > 1 cards, one Table
     a card."""
     with mesh.call():
-        tables = _on_mesh(table, mesh)
+        tables, valid = _on_mesh(table, mesh)
         encs = []
         for c in mesh.cards:
             with mesh.on(c):
@@ -205,7 +238,7 @@ def distributed_sort_table(
         words, payloads, counts = distributed_sort(
             _planes([e[1].words for e in encs]), _planes([e[4] for e in encs]),
             mesh=mesh, axis=axis, capacity_factor=capacity_factor, stable=stable,
-            overlap_exchange=overlap_exchange,
+            overlap_exchange=overlap_exchange, valid=valid,
         )
         out = []
         for c in mesh.cards:
@@ -222,14 +255,21 @@ def distributed_filter(table: Table, mask, *, mesh: Mesh, axis: str = "shard"):
     packed left in stable order, its other rows after them, with (D,) int32
     per-shard counts.  On a mesh over processes the table and the mask are
     this rank's rows; the counts are global (one ``all_gather``).  On K > 1
-    cards, one Table a card (the mask split as the rows, or one per card)."""
+    cards, one Table a card (the mask split as the rows, or one per card).
+    A single table whose length the shards do not divide gets rows that
+    the filter drops appended (:func:`_padded`), so the output is that
+    much longer."""
     _check_axis(mesh, axis)
-    with mesh.call():
-        tables = _on_mesh(table, mesh)
+    with mesh.call(), span("table.filter"):
+        tables, valid = _on_mesh(table, mesh)
         K, L = len(mesh.devices), mesh.per_card
         if isinstance(mask, (list, tuple)):
             masks = list(mask)
         else:  # split first: each card's part reaches it on its stream
+            if valid is not None:  # the rows _on_mesh appended: dropped
+                mask = _keys._to_tensor(mask, tables[0].device).to(torch.bool)
+                n_pad = sum(t.n_rows for t in tables) - sum(valid)
+                mask = P.cat([mask, torch.zeros(n_pad, dtype=torch.bool, device=mask.device)])
             b = int(mask.shape[0]) // K
             masks = [mask[c * b:(c + 1) * b] for c in range(K)]
         outs, kept = [], []
@@ -458,6 +498,7 @@ def _agg_combine(mesh: Mesh, plan: _AggPlan, local: list):
         aggs = [tops._take(packed[name], rot) for name, _ in plan.val_specs]
         outs[i] = keys + aggs
         counts[i] = x["G"] - shift
+        local[i] = x = None  # the shard's state is spent once its rows are out
     return outs, counts
 
 
@@ -476,6 +517,7 @@ def distributed_group_aggregate(
     capacity_factor: float = 1.5,
     overlap_exchange: bool = False,
     partition: str = "range",
+    counts=None,
 ):
     """Shuffle-then-local GROUP BY, finished on the mesh.
 
@@ -491,18 +533,28 @@ def distributed_group_aggregate(
 
     ``partition="hash"`` shuffles by a leading 32-bit key hash instead of
     the key range: distinct group keys spread uniformly whatever their range
-    clustering, and the group rows arrive in hash order, not key order."""
+    clustering, and the group rows arrive in hash order, not key order.
+
+    ``counts``: the (D,) per-shard counts of a static-length output
+    (:func:`distributed_filter`'s, :func:`distributed_sort_table`'s) that
+    ``table`` is: only each shard's first ``counts[d]`` rows are
+    aggregated, with no host read."""
     by_list = [by] if isinstance(by, str) else list(by)
     for _, (_, op) in aggs.items():
         if op not in tops._AGG_OPS:
             raise ValueError(f"unsupported agg op {op!r}")
     _check_partition(partition)
     with mesh.call():
-        return _group_aggregate(mesh, _on_mesh(table, mesh), by_list, aggs, axis,
+        tables, valid = _on_mesh(table, mesh)
+        if counts is not None:
+            if valid is not None:
+                raise ValueError("counts need a table whose length the shards divide")
+            valid = [counts[s] for s in mesh.shards]
+        return _group_aggregate(mesh, tables, valid, by_list, aggs, axis,
                                 capacity_factor, overlap_exchange, partition)
 
 
-def _group_aggregate(mesh, tables, by_list, aggs, axis, capacity_factor,
+def _group_aggregate(mesh, tables, valid, by_list, aggs, axis, capacity_factor,
                      overlap_exchange, partition):
     D, L = mesh.size, mesh.per_card
 
@@ -525,15 +577,45 @@ def _group_aggregate(mesh, tables, by_list, aggs, axis, capacity_factor,
     words, payloads, counts = distributed_sort(
         _planes(shuffle_words), _planes([e[4] for e in encs]), mesh=mesh, axis=axis,
         capacity_factor=capacity_factor, stable=True,
-        overlap_exchange=overlap_exchange,
+        overlap_exchange=overlap_exchange, valid=valid,
     )
     cap = _capacity(words[0], mesh)
-    if max(counts.tolist()) > cap:  # the global counts: every rank alike
+    with span("sync.capacity"):
+        demand = max(counts.tolist())
+    if demand > cap:  # the global counts: every rank alike
         raise OverflowError("shuffle capacity exceeded; raise capacity_factor")
 
     # 2. decode the value planes, build the plan, and every shard's segment
     # reduction (on its card), then the boundary combine
     nkw = nk.n_words + (1 if partition == "hash" else 0)
+    with span("table.aggregate"):
+        local, plan = _agg_locals(mesh, encs, words, payloads, counts, aggs, alias, nkw, cap)
+        outs, gcounts = _agg_combine(mesh, plan, local)
+        del local
+
+    # 3. densify on each card: one all_gather and one host read of the group
+    # counts, every shard's (the total) then this process's
+    gc = mesh.read_gathered(gcounts, gcounts).tolist()
+    shift = nkw - nk.n_words  # the hash word is not a key column
+    out = []
+    with span("table.densify"):
+        for c in mesh.cards:
+            mine = slice(c * L, (c + 1) * L)
+            with mesh.on(c):
+                dense = _dense(outs[mine], gc[D:][mine])
+                cols = _key_columns(by_list, nk, dense[shift:nkw])
+            for (out_name, _), plane in zip(plan.val_specs, dense[nkw:]):
+                cols[out_name] = plane
+            out.append(Table(cols))
+        total = torch.tensor(sum(gc[:D]), dtype=torch.int32, device=mesh.device)
+    return _per_card(out), total
+
+
+def _agg_locals(mesh, encs, words, payloads, counts, aggs, alias, nkw, cap):
+    """Every shard's segment reduction, on its card, from the decoded value
+    planes (freed on return, before the combine).  Returns (per local shard
+    state, the plan)."""
+    L = mesh.per_card
     cnts = mesh.replicas(counts)
     local = [None] * mesh.n_local
     plan = None
@@ -563,24 +645,7 @@ def _group_aggregate(mesh, tables, by_list, aggs, axis, capacity_factor,
                 local[i] = _agg_local(plan, p[:nkw], p[nkw:nkw + len(val_arrays)],
                                       p[nkw + len(val_arrays):], cnts[c][0][mesh.shards[i]])
             del shards
-    outs, gcounts = _agg_combine(mesh, plan, local)
-    del local
-
-    # 3. densify on each card: one all_gather and one host read of the group
-    # counts, every shard's (the total) then this process's
-    gc = mesh.read_gathered(gcounts, gcounts).tolist()
-    shift = nkw - nk.n_words  # the hash word is not a key column
-    out = []
-    for c in mesh.cards:
-        mine = slice(c * L, (c + 1) * L)
-        with mesh.on(c):
-            dense = _dense(outs[mine], gc[D:][mine])
-            cols = _key_columns(by_list, nk, dense[shift:nkw])
-        for (out_name, _), plane in zip(plan.val_specs, dense[nkw:]):
-            cols[out_name] = plane
-        out.append(Table(cols))
-    total = torch.tensor(sum(gc[:D]), dtype=torch.int32, device=mesh.device)
-    return _per_card(out), total
+    return local, plan
 
 
 # ---------------------------------------------------------------------------
@@ -676,8 +741,10 @@ def distributed_join(
                      join_capacity_factor, overlap_exchange, partition == "hash")
 
 
-def _join(mesh, lefts, rights, on_list, axis, how, suffix, capacity_factor,
+def _join(mesh, left_valid, right_valid, on_list, axis, how, suffix, capacity_factor,
           right_capacity_factor, join_capacity_factor, overlap_exchange, hashed):
+    (lefts, lvalid), (rights, rvalid) = left_valid, right_valid
+
     def encode(tables):
         encs, words = [], []
         for c, t in enumerate(tables):
@@ -693,7 +760,7 @@ def _join(mesh, lefts, rights, on_list, axis, how, suffix, capacity_factor,
         lwords, lpay, mesh=mesh, axis=axis,
         capacity_factor=capacity_factor, stable=True,
         split_uniform=False, return_partition=True,
-        overlap_exchange=overlap_exchange,
+        overlap_exchange=overlap_exchange, valid=lvalid,
     )
     rencs, rwords_in, rpay = encode(rights)
     rnk, renc, rpayload_words = rencs[0][1], rencs[0][3], rencs[0][4]
@@ -704,14 +771,15 @@ def _join(mesh, lefts, rights, on_list, axis, how, suffix, capacity_factor,
     rwords, rpayloads, rcounts = partition_exchange(
         rwords_in, rpay, part, mesh=mesh, axis=axis,
         capacity_factor=right_capacity_factor, stable=True,
-        overlap_exchange=overlap_exchange,
+        overlap_exchange=overlap_exchange, valid=rvalid,
     )
     del lwords, lpay, rwords_in, rpay
 
     D, L = mesh.size, mesh.per_card
     lcap = _capacity(words[0], mesh)
     rcap = _capacity(rwords[0], mesh)
-    both = torch.cat([counts, rcounts]).tolist()  # global: every rank alike
+    with span("sync.capacity"):
+        both = torch.cat([counts, rcounts]).tolist()  # global: every rank alike
     if max(both[:D]) > lcap or max(both[D:]) > rcap:
         raise OverflowError("shuffle capacity exceeded; raise capacity_factor")
     out_cap = max(int(math.ceil(join_capacity_factor * lcap)), 16)
@@ -719,18 +787,19 @@ def _join(mesh, lefts, rights, on_list, axis, how, suffix, capacity_factor,
     nkw = (1 if hashed else 0) + nk.n_words
     cnts = mesh.replicas(counts, rcounts)
     outs, sizes = [None] * mesh.n_local, [None] * mesh.n_local
-    for c in mesh.cards:
-        with mesh.on(c):
-            lsh = _per_shard([_block(p, c) for p in list(words) + list(payloads)], L)
-            rsh = _per_shard([_block(p, c) for p in list(rwords) + list(rpayloads)], L)
-            for j, (ls, rs) in enumerate(zip(lsh, rsh)):
-                i = c * L + j
-                s = mesh.shards[i]
-                o, jc, mt = _join_local(ls[:nkw], ls[nkw:], cnts[c][0][s],
-                                        rs[:nkw], rs[nkw:], cnts[c][1][s], out_cap, how)
-                outs[i] = o
-                sizes[i] = torch.stack([jc, mt]).to(torch.int64)
-            del lsh, rsh
+    with span("table.join"):
+        for c in mesh.cards:
+            with mesh.on(c):
+                lsh = _per_shard([_block(p, c) for p in list(words) + list(payloads)], L)
+                rsh = _per_shard([_block(p, c) for p in list(rwords) + list(rpayloads)], L)
+                for j, (ls, rs) in enumerate(zip(lsh, rsh)):
+                    i = c * L + j
+                    s = mesh.shards[i]
+                    o, jc, mt = _join_local(ls[:nkw], ls[nkw:], cnts[c][0][s], rs[:nkw],
+                                            rs[nkw:], cnts[c][1][s], out_cap, how)
+                    outs[i] = o
+                    sizes[i] = torch.stack([jc, mt]).to(torch.int64)
+                del lsh, rsh
     del words, payloads, rwords, rpayloads
     # every shard's (output rows, matches): one all_gather, one host read,
     # so every rank raises the same OverflowError or none does
@@ -747,17 +816,42 @@ def _join(mesh, lefts, rights, on_list, axis, how, suffix, capacity_factor,
                    for name, _ in renc]
     order = list(left_names) + right_names
     tables = []
-    for c in mesh.cards:
-        mine = slice(c * L, (c + 1) * L)
-        with mesh.on(c):
-            planes = _dense(outs[mine], got[D:, 0][mine].tolist())
-            outs[mine] = [None] * L
-            cols = _key_columns(on_list, lencs[c][1], planes[nkw - nk.n_words:nkw])
-            i = nkw + len(payload_words)
-            cols.update(_decode_columns(lencs[c][3], planes[nkw:i]))
-            cols.update(_decode_columns(rencs[c][3], planes[i:i + len(rpayload_words)],
-                                        right_names))
-            if how == "left":
-                cols["_matched"] = P.sview(planes[-1]) != 0
-        tables.append(Table({n: cols[n] for n in order + (["_matched"] if how == "left" else [])}))
+    with span("table.densify"):
+        for c in mesh.cards:
+            mine = slice(c * L, (c + 1) * L)
+            with mesh.on(c):
+                planes = _dense(outs[mine], got[D:, 0][mine].tolist())
+                outs[mine] = [None] * L
+                cols = _key_columns(on_list, lencs[c][1], planes[nkw - nk.n_words:nkw])
+                i = nkw + len(payload_words)
+                cols.update(_decode_columns(lencs[c][3], planes[nkw:i]))
+                cols.update(_decode_columns(rencs[c][3], planes[i:i + len(rpayload_words)],
+                                            right_names))
+                if how == "left":
+                    cols["_matched"] = P.sview(planes[-1]) != 0
+            names = order + (["_matched"] if how == "left" else [])
+            tables.append(Table({n: cols[n] for n in names}))
     return _per_card(tables), n_matched
+
+
+def distributed_densify(table, counts, *, mesh: Mesh):
+    """The valid rows of a static-length output (:func:`distributed_filter`'s
+    or :func:`distributed_sort_table`'s: shard d's first ``counts[d]`` rows),
+    concatenated in shard order on each card after one host read of the
+    counts.  Returns (Table, or on K > 1 cards one a card; the row count as
+    an int); on a mesh over processes, this rank's shards' rows and the
+    global count."""
+    tables = list(table) if isinstance(table, (list, tuple)) else [table]
+    L = mesh.per_card
+    with mesh.call():
+        with span("sync.densify"):
+            got = counts.tolist()
+        out = []
+        with span("table.densify"):
+            for c in mesh.cards:
+                names = tables[c].column_names
+                with mesh.on(c):
+                    per_shard = _per_shard([tables[c].column(n) for n in names], L)
+                    dense = _dense(per_shard, [got[mesh.shards[c * L + j]] for j in range(L)])
+                out.append(Table(dict(zip(names, dense))))
+    return _per_card(out), sum(got)

@@ -82,6 +82,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from rdst_tpu_torch.utils.trace import span
+
 __all__ = ["Mesh", "init_distributed", "make_mesh", "make_mesh_2d"]
 
 _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
@@ -323,13 +325,15 @@ class Mesh:
     def read_gathered(self, xs, local) -> np.ndarray:
         """``all_gather(xs)``, (D, ...), followed by this process's ``local``
         values, (L, ...), read on the host in one copy (``TRANSPORT``
-        counts it in ``host_reads``).  Under NCCL this is the one host wait
+        counts it in ``host_reads``; the read is the span
+        ``rdst.sync.read_gathered``).  Under NCCL this is the one host wait
         of a cross-process exchange."""
         gathered = self.all_gather(xs)
         with self.on(0):
             both = torch.cat([gathered, torch.stack(self._home(local))])
             TRANSPORT["host_reads"] += 1
-            return both.cpu().numpy()
+            with span("sync.read_gathered"):
+                return both.cpu().numpy()
 
     def all_to_all(self, send: torch.Tensor, send_counts, recv_counts) -> torch.Tensor:
         """One ``all_to_all_single`` of a 1-D int32 buffer on the

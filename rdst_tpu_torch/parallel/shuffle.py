@@ -74,6 +74,7 @@ from rdst_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh, make
 from rdst_tpu_torch.parallel.remote_dma import (
     PAD_WORD, remote_dma_exchange, remote_dma_exchange_cards,
 )
+from rdst_tpu_torch.utils.trace import span, traced
 
 __all__ = [
     "distributed_sort", "distributed_sort_auto", "partition_exchange",
@@ -93,15 +94,44 @@ SORT_ROUTES: collections.Counter = collections.Counter()
 
 def _local_sort(planes, n_keys, stable):
     """Per-shard sort: the fused bitonic executor (B2/B3) when it takes the
-    shard's shape, else ``lex_sort``."""
+    shard's shape, else ``lex_sort``; the span ``rdst.shuffle.sort.fused``
+    or ``rdst.shuffle.sort.lex`` names the route."""
     words, payloads = list(planes[:n_keys]), list(planes[n_keys:])
     fused = fused_sort_available(words, payloads, stable=stable)
     SORT_ROUTES[(len(planes), int(planes[0].shape[0]),
                  "B2/B3" if fused else "lex_sort")] += 1
     if fused:
-        out_w, out_p = fused_sort(words, payloads, stable=stable)
+        with span("shuffle.sort.fused"):
+            out_w, out_p = fused_sort(words, payloads, stable=stable)
         return list(out_w) + list(out_p)
-    return P.lex_sort(planes, n_keys, stable=stable)
+    with span("shuffle.sort.lex"):
+        return P.lex_sort(planes, n_keys, stable=stable)
+
+
+def _valid_rows(valid, mesh: Mesh):
+    """Each local shard's count of rows that take part (``valid[i]``: an int
+    or a 0-dim tensor, for ``mesh.shards[i]``) as a 0-dim int64 tensor on
+    the shard's card, made there without a host read; None passes."""
+    if valid is None:
+        return None
+    if len(valid) != mesh.n_local:
+        raise ValueError(f"{len(valid)} valid counts for {mesh.n_local} shards")
+    out = [None] * mesh.n_local
+    for i, c in mesh.each():
+        v, dev = valid[i], mesh.devices[c]
+        out[i] = (v.to(dev, _I64, non_blocking=True) if isinstance(v, torch.Tensor)
+                  else torch.full((), int(v), dtype=_I64, device=dev))
+    return out
+
+
+def _drop_invalid(planes, n_keys, valid):
+    """A shard's planes with the key words of the rows at or past ``valid``
+    set to the pad word: a stable sort keeps them after every row that
+    takes part (they lie after those rows already)."""
+    pos = torch.arange(int(planes[0].shape[0]), device=planes[0].device)
+    off = pos >= valid
+    pad = P.full(1, PAD_WORD, torch.uint32, planes[0].device)
+    return [P.where(off, pad, w) for w in planes[:n_keys]] + list(planes[n_keys:])
 
 
 def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -126,14 +156,20 @@ def _window(mins: torch.Tensor, maxs: torch.Tensor):
     return mins, bl - bits, bits
 
 
-def _window_params(keys, mesh: Mesh):
+def _window_params(keys, mesh: Mesh, valid=None):
     """Entropy-adaptive window from every shard's key planes (global
-    min/max per word through the mesh's collectives)."""
+    min/max per word through the mesh's collectives); with ``valid``, over
+    each shard's first ``valid[i]`` rows only."""
     lo, hi = [None] * len(keys), [None] * len(keys)
     for i, _ in mesh.each():
-        ext = [P.widen(w).aminmax() for w in keys[i]]
-        lo[i] = torch.stack([e.min for e in ext])
-        hi[i] = torch.stack([e.max for e in ext])
+        if valid is None:
+            ext = [P.widen(w).aminmax() for w in keys[i]]
+            lo[i] = torch.stack([e.min for e in ext])
+            hi[i] = torch.stack([e.max for e in ext])
+            continue
+        m = torch.arange(int(keys[i][0].shape[0]), device=keys[i][0].device) < valid[i]
+        lo[i] = torch.stack([torch.where(m, P.widen(w), PAD_WORD).min() for w in keys[i]])
+        hi[i] = torch.stack([torch.where(m, P.widen(w), 0).max() for w in keys[i]])
     return _window(mesh.pmin(lo), mesh.pmax(hi))
 
 
@@ -178,32 +214,74 @@ def _single_key(mesh, keys, edges, hists, n_local):
 
 
 def _shard_body(mesh, n_keys, capacity, stage1_cap, stable, split_uniform,
-                return_partition, overlap, refine_levels, shards):
+                return_partition, overlap, refine_levels, shards, valid=None):
     """The shard_map body of the JAX package, in lockstep over this
     process's shards, each shard's work on its card's stream and the
     replicated values on card 0's (each card reading its own copies,
     :meth:`Mesh.replicas`).  ``shards[i]``: shard ``mesh.shards[i]``'s word
-    and payload planes.  Returns (output planes, counts, partition or
-    None)."""
+    and payload planes; ``valid[i]`` (or None: all) how many of its rows
+    take part, the rest being left out of every count and of the exchange.
+    Returns (output planes, counts, partition or None)."""
     D = mesh.size
     L = len(shards)
-    dev = mesh.device
     n_local = int(shards[0][0].shape[0])
-    R = N_BUCKETS
 
-    # 1. local sort by the full key (payloads ride along), the cards at once
+    # 1. local sort by the full key (payloads ride along), the cards at once;
+    # rows left out sort last (stable), behind every row that takes part
     sorted_all = [None] * L
     for i, _ in mesh.each():
-        sorted_all[i] = _local_sort(shards[i], n_keys, stable)
+        planes = shards[i] if valid is None else _drop_invalid(shards[i], n_keys, valid[i])
+        sorted_all[i] = _local_sort(planes, n_keys, stable or valid is not None)
     keys = [p[:n_keys] for p in sorted_all]
-    window = mesh.replicas(*_window_params(keys, mesh))
+    with span("shuffle.plan"):
+        take_lt, extra, cum_mid, Rd, window = _assignment(
+            mesh, keys, split_uniform, return_partition, refine_levels, n_local, valid)
+    input_offsets, send_sizes = [None] * L, [None] * L
+    for i, _ in mesh.each():
+        boundary = take_lt[i].sum(1)  # (D+1,)
+        if extra is not None:
+            boundary = boundary + extra[i]
+        send_sizes[i] = boundary[1:] - boundary[:-1]
+        input_offsets[i] = boundary[:-1]
+    del keys, take_lt, extra
 
-    # 2. per-shard histograms by searchsorted over the sorted bucket ids
+    # 4-6. exchange and local finish
+    outs, counts = _exchange_and_finish(
+        mesh, sorted_all, n_keys, input_offsets, send_sizes, capacity, stable,
+        overlap, stage1_cap,
+    )
+    partition = None
+    if return_partition:
+        # each shard's first bucket, by the atomic rule's comparison
+        dev_start = torch.searchsorted(cum_mid, Rd)
+        dev_start[D] = N_BUCKETS
+        partition = (*window[0], dev_start)  # card 0's: (gmins, shifts, bits)
+    return outs, counts, partition
+
+
+def _assignment(mesh, keys, split_uniform, return_partition, refine_levels, n_local,
+                valid):
+    """Steps 1b-3 of the body: the window, every shard's histogram, and each
+    shard's rows taken by each destination (``take_lt``, with the hot-bucket
+    refinement's ``extra`` boundary counts or None).  Returns (take_lt,
+    extra, cum_mid, Rd, window replicas)."""
+    D = mesh.size
+    L = len(keys)
+    dev = mesh.device
+    R = N_BUCKETS
+    window = mesh.replicas(*_window_params(keys, mesh, valid))
+
+    # 2. per-shard histograms by searchsorted over the sorted bucket ids (a
+    # row left out counts in bucket R: past every edge)
     edges, hists, ars = [None] * L, [None] * L, {}
     for i, c in mesh.each():
         if c not in ars:
             ars[c] = torch.arange(R + 1, dtype=torch.int32, device=mesh.devices[c])
-        edges[i] = torch.searchsorted(_apply_window(keys[i], *window[c]), ars[c])
+        ids = _apply_window(keys[i], *window[c])
+        if valid is not None:
+            pos = torch.arange(n_local, device=mesh.devices[c])
+            ids = torch.where(pos < valid[i], ids, R)
+        edges[i] = torch.searchsorted(ids, ars[c])
         hists[i] = edges[i][1:] - edges[i][:-1]
     hist_matrix = None
     if split_uniform:
@@ -242,27 +320,7 @@ def _shard_body(mesh, n_keys, capacity, stage1_cap, stable, split_uniform,
             mesh, keys, edges, global_hist, uniform, take_lt, bstart, Rd,
             total, refine_levels, n_local,
         )
-    input_offsets, send_sizes = [None] * L, [None] * L
-    for i, _ in mesh.each():
-        boundary = take_lt[i].sum(1)  # (D+1,)
-        if extra is not None:
-            boundary = boundary + extra[i]
-        send_sizes[i] = boundary[1:] - boundary[:-1]
-        input_offsets[i] = boundary[:-1]
-    del keys, edges, take_lt, extra
-
-    # 4-6. exchange and local finish
-    outs, counts = _exchange_and_finish(
-        mesh, sorted_all, n_keys, input_offsets, send_sizes, capacity, stable,
-        overlap, stage1_cap,
-    )
-    partition = None
-    if return_partition:
-        # each shard's first bucket, by the atomic rule's comparison
-        dev_start = torch.searchsorted(cum_mid, Rd)
-        dev_start[D] = R
-        partition = (*window[0], dev_start)  # card 0's: (gmins, shifts, bits)
-    return outs, counts, partition
+    return take_lt, extra, cum_mid, Rd, window
 
 
 def _refined_assignment(mesh, keys, edges, global_hist, uniform, take_lt,
@@ -344,6 +402,7 @@ def _refined_assignment(mesh, keys, edges, global_hist, uniform, take_lt,
 # ---------------------------------------------------------------------------
 
 
+@traced("shuffle.exchange")
 def _exchange_raw(mesh, planes, input_offsets, send_sizes, capacity, groups):
     """The bare exchange inside each group of shards (all to all).
 
@@ -847,6 +906,7 @@ def distributed_sort(
     return_partition: bool = False,
     use_ragged: bool | None = None,
     overlap_exchange: bool = False,
+    valid=None,
 ):
     """Sort globally over the mesh's shards.
 
@@ -870,10 +930,17 @@ def distributed_sort(
     exchanges in two sender-half phases and merges (B4/B5): the same
     output.  On a 2-axis mesh pass ``axis=mesh.axis_names`` for the
     two-stage (host, chip) exchange.  ``use_ragged`` has no effect (the
-    exchange is always the exact ragged layout)."""
+    exchange is always the exact ragged layout).
+
+    ``valid``: for each of this process's shards, how many of its first
+    rows take part (ints or 0-dim tensors, never read on the host); the
+    rest are left out of the sort, the counts and the exchange, as the
+    rows past a shard's count in the static-length outputs of
+    :func:`rdst_tpu_torch.parallel.distributed_filter`.  The local sort is
+    then stable.  The call is the span ``rdst.shuffle``."""
     del use_ragged
     _check_axis(mesh, axis)
-    with mesh.call():
+    with mesh.call(), span("shuffle"):
         planes, pay_dtypes = _to_planes(words, payloads, mesh)
         shards, n = _shard(planes, mesh)
         del planes
@@ -881,7 +948,7 @@ def distributed_sort(
         outs, counts, partition = _shard_body(
             mesh, len(words), capacity, _stage1_cap(capacity), stable,
             split_uniform, return_partition, overlap_exchange,
-            config.shuffle_refine_levels, shards,
+            config.shuffle_refine_levels, shards, _valid_rows(valid, mesh),
         )
     w, p = _split(outs, len(words), pay_dtypes)
     if return_partition:
@@ -890,21 +957,26 @@ def distributed_sort(
 
 
 def _partition_body(mesh, n_keys, capacity, stage1_cap, stable, overlap,
-                    partition, shards):
+                    partition, shards, valid=None):
     """Route rows by a precomputed partition (shuffle.py
-    ``_partition_body``)."""
+    ``_partition_body``); ``valid`` as in :func:`_shard_body`."""
     rep = mesh.replicas(*partition)  # gmins, shifts, bits, dev_start
     L = len(shards)
     sorted_all, offs, sizes = [None] * L, [None] * L, [None] * L
     for i, c in mesh.each():
         planes = shards[i]
-        bucket = _apply_window(planes[:n_keys], *rep[c][:3])
-        # sort by (bucket, key): segments must be bucket-contiguous even
-        # where a foreign window's saturation breaks key order.  The signed
-        # bucket leads as a biased u32 (same order as int32).
-        lead = P.narrow(bucket.to(_I64) + (1 << 31), torch.uint32)
+        with span("shuffle.plan"):
+            bucket = _apply_window(planes[:n_keys], *rep[c][:3])
+            if valid is not None:  # a row left out goes to bucket R: past every shard
+                pos = torch.arange(int(planes[0].shape[0]), device=bucket.device)
+                bucket = torch.where(pos < valid[i], bucket, N_BUCKETS)
+            # sort by (bucket, key): segments must be bucket-contiguous even
+            # where a foreign window's saturation breaks key order.  The
+            # signed bucket leads as a biased u32 (same order as int32).
+            lead = P.narrow(bucket.to(_I64) + (1 << 31), torch.uint32)
         srt = _local_sort([lead] + list(planes), 1 + n_keys, stable)
-        boundary = torch.searchsorted(P.widen(srt[0]) - (1 << 31), rep[c][3])
+        with span("shuffle.plan"):
+            boundary = torch.searchsorted(P.widen(srt[0]) - (1 << 31), rep[c][3])
         sorted_all[i] = srt[1:]
         sizes[i] = boundary[1:] - boundary[:-1]
         offs[i] = boundary[:-1]
@@ -923,16 +995,17 @@ def partition_exchange(
     stable: bool = False,
     use_ragged: bool | None = None,
     overlap_exchange: bool = False,
+    valid=None,
 ):
     """Route rows to shards by an existing partition (co-partitioning): the
     4-tuple from ``distributed_sort(..., split_uniform=False,
     return_partition=True)``.  Rows whose key falls in bucket b land on the
     shard that shuffle gave bucket b.  A dataset of at most
     ``config.replicate_capacity_max`` rows gets full-table capacity.  Same
-    return convention as :func:`distributed_sort`."""
+    return convention, ``valid`` and span as :func:`distributed_sort`."""
     del use_ragged
     _check_axis(mesh, axis)
-    with mesh.call():
+    with mesh.call(), span("shuffle"):
         planes, pay_dtypes = _to_planes(words, payloads, mesh)
         shards, n = _shard(planes, mesh)
         del planes
@@ -948,7 +1021,7 @@ def partition_exchange(
         )
         outs, counts = _partition_body(
             mesh, len(words), capacity, _stage1_cap(capacity), stable,
-            overlap_exchange, part, shards,
+            overlap_exchange, part, shards, _valid_rows(valid, mesh),
         )
     w, p = _split(outs, len(words), pay_dtypes)
     return w, p, counts

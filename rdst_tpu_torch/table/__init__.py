@@ -1,4 +1,5 @@
 from rdst_tpu_torch.table.table import Table
 from rdst_tpu_torch.table import ops
+from rdst_tpu_torch.table import tpch
 
-__all__ = ["Table", "ops"]
+__all__ = ["Table", "ops", "tpch"]

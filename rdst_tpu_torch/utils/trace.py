@@ -35,6 +35,27 @@ The spans of one sort call (children indented under their parent):
 Every deliberate device-to-host read of the call is an ``rdst.sync.*``
 span.  A child span belongs to the call whose ``rdst.sort`` span covers it
 on the same thread.
+
+The table engine's spans (``table/tpch.py``, ``parallel/dtable.py``,
+``parallel/shuffle.py``, ``parallel/mesh.py``):
+
+    rdst.query.q1, rdst.query.q18 a TPC-H query plan, the whole call
+      rdst.table.filter           distributed_filter
+      rdst.table.encode           an operator's key and payload encoding
+        rdst.keys.normalize       the key words
+      rdst.shuffle                distributed_sort, partition_exchange
+        rdst.shuffle.sort.fused   a shard's sort on B2/B3 (-> rdst.fused_sort)
+        rdst.shuffle.sort.lex     a shard's sort by lex_sort
+        rdst.shuffle.plan         the window, histograms and assignment
+        rdst.shuffle.exchange     the exchange (B6)
+          rdst.sync.read_gathered a read across processes
+      rdst.sync.capacity          an aggregate's or join's demand read
+      rdst.table.aggregate        the segment reductions and the combine
+      rdst.table.join             every shard's sort-merge join
+      rdst.sync.read_gathered     the gathered group or match counts
+      rdst.sync.densify           distributed_densify's counts
+      rdst.table.densify          the valid rows made dense
+        rdst.keys.denormalize     the key columns
 """
 from __future__ import annotations
 

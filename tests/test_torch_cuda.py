@@ -1017,3 +1017,32 @@ def test_table_ops_on_the_card(dev):
         for c in a.column_names:
             assert a[c].device.type == "cuda"
             assert torch.equal(a[c].cpu(), b[c])
+
+
+def test_tpch_queries_on_the_card(dev, monkeypatch):
+    """TPC-H Q1 and Q18 (``table.tpch``) at SF 1, chunk 1 of 4 (375,000
+    orders, ~1.5M lines) on make_mesh(8) on the card, B2/B3 in Q18's
+    aggregate (``fused_min_elems`` lowered to its shards) and lex_sort in
+    Q1's: no plain version on a CUDA tensor, and equal to the plain
+    reference of ``tests/tpch_plain.py`` on the card."""
+    import tpch_plain as tp
+    from rdst_tpu_torch.table import Table, tpch
+
+    monkeypatch.setattr(config, "fused_min_elems", 1 << 14)
+    li, od, cu = tp.generate(1, 1, 4, 2**31 + 41, dev)
+    tables = [Table(d) for d in (li, od, cu)]
+    mesh = tpar.make_mesh(8, device=dev)
+    plain = _plain_calls()
+    before = fs.TAIL.launches, rd.EXCHANGE.launches
+    for delta, quantity in ((60, 250), (120, 300)):
+        got = tpch.q1(tables[0], delta_days=delta, mesh=mesh)
+        want = tp.q1_plain(li, delta)
+        for c in tp.Q1_COLUMNS:
+            assert got[c].dtype == want[c].dtype and torch.equal(got[c], want[c]), c
+        got = tpch.q18(*tables, quantity=quantity, mesh=mesh)
+        want = tp.q18_plain(li, od, cu, quantity)
+        assert got.n_rows == want["o_orderkey"].numel() > 0
+        for c in tp.Q18_COLUMNS:
+            assert torch.equal(got[c], want[c]), c
+    assert fs.TAIL.launches > before[0] and rd.EXCHANGE.launches > before[1]
+    assert _plain_calls() == plain

@@ -417,10 +417,17 @@ def test_hash_partitioned_join_clustered_keys(meshes):
 
 
 def test_dtable_argument_checks(meshes):
+    """The shuffle's planes still split evenly over the shards (a table of
+    any length is padded by the operators, ``tests/test_torch_tpch.py``),
+    and static-length counts need a table that does."""
     tm = meshes[1]
     with pytest.raises(ValueError, match="not divisible"):
-        td.distributed_filter(Table({"k": torch.arange(63)}),
-                              torch.ones(63, dtype=torch.bool), mesh=tm)
+        sh.distributed_sort([torch.arange(63, dtype=torch.int32).view(torch.uint32)],
+                            mesh=tm)
+    with pytest.raises(ValueError, match="shards divide"):
+        td.distributed_group_aggregate(Table({"k": torch.arange(63)}), "k",
+                                       {"n": ("k", "count")}, mesh=tm,
+                                       counts=torch.full((8,), 7, dtype=torch.int32))
     t = Table({"k": torch.arange(64, dtype=torch.int32)})
     with pytest.raises(ValueError, match="how must be"):
         td.distributed_join(t, t, "k", mesh=tm, how="outer")
