@@ -234,6 +234,8 @@ KERNEL_INFO = {
         "rdst_tpu_torch/csrc/bitonic.cu", "rdst_tpu/ops/pallas_merge.py:232"),
     "remote_exchange": (
         "rdst_tpu_torch/csrc/exchange.cu", "rdst_tpu/parallel/remote_dma.py:225"),
+    "piece_merge": (  # no Pallas kernel: the XLA slice stages of _merge_asc_desc
+        "rdst_tpu_torch/csrc/piece_merge.cu", "rdst_tpu/ops/pallas_sort.py:702"),
 }
 GiB = 1 << 30
 WARM_CALLS = 3  # timed calls of each table path after its first
@@ -297,6 +299,24 @@ def ce_ops(name, dtypes, n, args) -> int:
         block, nk = args
         stages = block.bit_length() - 1
     return stages * (n // 2) * (nk + 2 * len(dtypes))
+
+
+def piece_merge_checks(torch, P, fs, planes_of, check):
+    """B7 against its plain version at the piece path's merges: the 50M u64
+    sort's (runs of 8Q and 4Q, Q = 2^22, two key planes; the kernels line's
+    shape) and a 6-plane shard sort's (8Q + Q, Q = 2^21), then the same with
+    mixed widths.  Bound: both runs read once, the merged run written once."""
+    u8, u16, u32 = torch.uint8, torch.uint16, torch.uint32
+    for la, lb, dtypes, n_keys in [(8 << 22, 4 << 22, (u32, u32), 2),
+                                   (8 << 21, 1 << 21, (u32,) * 6, 5),
+                                   (8 << 21, 1 << 21, (u32, u16, u32, u8, u32, u32), 5)]:
+        a = P.lex_sort(planes_of(la, dtypes), n_keys)
+        b = P.lex_sort(planes_of(lb, dtypes), n_keys)
+        widths = "+".join(str(d).split(".")[-1] for d in dtypes)
+        check("piece_merge", f"{la} + {lb} x {widths}, {n_keys} keys",
+              lambda: fs.piece_merge_cuda(a, b, n_keys),
+              lambda: fs.piece_merge_plain(a, b, n_keys), main_shape=la == 8 << 22)
+        del a, b
 
 
 def plain_route(fm, fn):
@@ -3146,6 +3166,7 @@ def main() -> int:
           lambda: fs.span_plain(eight, 1 << 22, 1 << 14, 1 << 11, 1 << 16,
                                 blk8, 3))
     del w, ws, we, wr, narrow, eight, packed
+    piece_merge_checks(torch, P, fs, planes_of, check)
 
     # B4/B5 at the chunked path's merge shape: two u64 key words, the
     # stable tiebreak plane and a u32 rider; then narrow planes, a float32

@@ -12,13 +12,15 @@ package's, so the module docstring there explains the design:
             above the big block, then one tail pass (B2) for the rest, with
             odd output runs merging descending so no level reverses data;
   pieces    a length far from a power of two is padded only to a multiple
-            of T/16, sorted as power-of-two pieces (odd pieces descending),
-            and the pieces merge with virtual-pad bitonic merges.
+            of T/16 and sorted as ascending power-of-two pieces, each merged
+            into the run of the pieces before it in one pass (B7,
+            :func:`piece_merge`); the JAX package merges them with
+            virtual-pad bitonic merges instead.
 
 A uint32 index plane appended as the least significant key makes the order
 strict, so ``stable=True`` yields the unique stable permutation.  Unstable
 sorts with payloads at padded lengths add a u8 pad marker, which on the
-piece path joins only the final piece and the merges after it.  u8/u16
+piece path joins only the final piece and the merge after it.  u8/u16
 planes stay narrow in device memory and widen to u32 only inside the
 kernels.
 
@@ -30,6 +32,9 @@ kernel and plain version agree bit for bit, payloads included.  The kernels
 hold a tile in registers; :func:`_net_plan` turns a launch's stages into the
 steps the kernel runs (compare-exchanges between registers or lanes, and
 the moves between register layouts that the other strides need).
+:func:`piece_merge` launches ``csrc/piece_merge.cu`` for CUDA planes and
+runs :func:`piece_merge_plain`, a stable sort of the concatenation, for CPU
+planes; a stable merge has one output, so the two agree bit for bit too.
 """
 from __future__ import annotations
 
@@ -47,6 +52,8 @@ __all__ = [
     "fused_sort", "fused_sort_available", "pick_blocks", "tail_call",
     "span_call", "tail_plain", "span_plain", "tail_cuda", "span_cuda",
     "TAIL", "SPAN", "MAX_PLANES", "GRAIN", "ELEMS", "elems_per_thread",
+    "piece_merge", "piece_merge_plain", "piece_merge_cuda", "PIECE_MERGE",
+    "MERGE_THREADS", "MERGE_ELEMS", "merge_tile",
 ]
 
 #: Maximum next_pow2(n)/n for padding to the power of two; beyond it the
@@ -81,6 +88,17 @@ SPAN = _build.Kernel(
     "rdst_bitonic_span",
     _PLANE_ARGS + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int] + _PLAN_ARGS,
 )
+PIECE_MERGE = _build.Kernel(
+    "piece_merge",
+    "rdst_piece_merge",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_void_p],
+)
+#: Threads of a B7 block and elements each merges, by key planes
+#: (kMergeThreads, merge_elems in csrc/piece_merge.cu).
+MERGE_THREADS = 256
+MERGE_ELEMS = {1: 15, 2: 15, 3: 11, 4: 11, 5: 7, 6: 7, 7: 7, 8: 7}
 
 
 def _log2(x: int) -> int:
@@ -405,6 +423,59 @@ def span_call(planes, n, s_hi, s_lo, two_r, block, n_keys):
     return fn(list(planes), n, s_hi, s_lo, two_r, block, n_keys)
 
 
+def merge_tile(n_keys: int) -> int:
+    """Output elements of one B7 block at ``n_keys`` key planes."""
+    return MERGE_THREADS * MERGE_ELEMS[n_keys]
+
+
+def _check_merge(a, b, n_keys):
+    if len(a) != len(b):
+        raise ValueError("both runs need the same planes")
+    _check_planes(a, int(a[0].shape[0]), n_keys)
+    _check_planes(b, int(b[0].shape[0]), n_keys)
+    if any(x.dtype != y.dtype for x, y in zip(a, b)):
+        raise ValueError("both runs need the same plane dtypes")
+
+
+def piece_merge_plain(a, b, n_keys):
+    """Plain PyTorch version of B7: the stable sort of the concatenation
+    ``a ++ b`` by the first ``n_keys`` planes, which is the stable merge of
+    two ascending runs (on equal keys ``a`` first)."""
+    _check_merge(a, b, n_keys)
+    PIECE_MERGE.plain_calls += 1
+    return P.lex_sort([P.cat([x, y]) for x, y in zip(a, b)], n_keys, stable=True)
+
+
+def piece_merge_cuda(a, b, n_keys):
+    """Launch B7 (``csrc/piece_merge.cu``): the partition of the output into
+    tiles, then one block a tile."""
+    a = [p.contiguous() for p in a]
+    b = [p.contiguous() for p in b]
+    _check_merge(a, b, n_keys)
+    dev, la = _build.check_cuda_planes(a, P.UNSIGNED)
+    dev_b, lb = _build.check_cuda_planes(b, P.UNSIGNED)
+    if dev_b != dev:
+        raise ValueError("both runs must lie on one CUDA device")
+    k = len(a)
+    outs = [torch.empty(la + lb, dtype=p.dtype, device=dev) for p in a]
+    splits = torch.empty(-(-(la + lb) // merge_tile(n_keys)) + 1,
+                         dtype=torch.int64, device=dev)
+    ptrs = [(ctypes.c_void_p * k)(*[p.data_ptr() for p in ps]) for ps in (a, b, outs)]
+    widths = (ctypes.c_int * k)(*[p.dtype.itemsize for p in a])
+    PIECE_MERGE.launch(dev, *ptrs, widths, k, n_keys, la, lb, splits.data_ptr(),
+                       splits.numel(), _build.stream_of(a[0]))
+    return outs
+
+
+def piece_merge(a, b, n_keys):
+    """B7: merge ascending runs ``a`` and ``b`` (lists of the same planes,
+    keys first) into new planes of both lengths, ascending and stable (on
+    equal keys ``a`` first); the kernel for CUDA planes, the plain version
+    for CPU planes."""
+    fn = piece_merge_cuda if _on_cuda(a) else piece_merge_plain
+    return fn(list(a), list(b), n_keys)
+
+
 # ---------------------------------------------------------------------------
 # The executor
 # ---------------------------------------------------------------------------
@@ -540,9 +611,7 @@ def fused_sort(
         if M & (1 << bit):
             pieces.append((off, (1 << bit) * Q))
             off += (1 << bit) * Q
-    acc = _sort_piece(
-        [p[: pieces[0][1]] for p in planes], n_keys, False, blk_s, blk_b, m
-    )
+    acc = _sort_piece([p[: pieces[0][1]] for p in planes], n_keys, blk_s, blk_b, m)
     la = pieces[0][1]
     for o, ln in pieces[1:]:
         sub = [p[o: o + ln] for p in planes]
@@ -553,14 +622,13 @@ def fused_sort(
                             P.full(total - n, 1, torch.uint8, dev)])
             sub = sub[:n_keys] + [marker] + sub[n_keys:]
             nk_piece += 1
-        pc = _sort_piece(sub, nk_piece, True, blk_s, blk_b, m)
+        pc = _sort_piece(sub, nk_piece, blk_s, blk_b, m)
         if nk_piece != n_keys:
             acc = acc[:n_keys] + [P.full(la, 0, torch.uint8, dev)] + acc[n_keys:]
             n_keys = nk_piece
-        acc = [P.cat([a, b]) for a, b in zip(acc, pc)]
         la += ln
         with span("fused_sort.merge"):
-            acc = _merge_asc_desc(acc, la, Q, n_keys, blk_b)
+            acc = piece_merge(acc, pc, n_keys)
     return finish(acc)
 
 
@@ -608,79 +676,9 @@ def _core(planes, T, n_keys, blk_s, blk_b, m):
     return planes
 
 
-def _sort_piece(planes, n_keys, descending, blk_s, blk_b, m):
-    """Sort one power-of-two piece; ``descending`` complements the keys
-    around an ascending sort."""
+def _sort_piece(planes, n_keys, blk_s, blk_b, m):
+    """Sort one power-of-two piece ascending."""
     ln = int(planes[0].shape[0])
-    if descending:
-        planes = [P.complement(p) if j < n_keys else p for j, p in enumerate(planes)]
     if ln >= config.fused_min_piece and min(blk_s, ln) >= 2 * GRAIN and m >= 2:
-        out = _core(list(planes), ln, n_keys, blk_s, blk_b, m)
-    else:
-        out = P.lex_sort(planes, n_keys, stable=False)
-    if descending:
-        out = [P.complement(p) if j < n_keys else p for j, p in enumerate(out)]
-    return out
-
-
-def _stage_ranges(s: int, p: int, nR: int) -> list[tuple[int, int]]:
-    """Active index runs of one virtual-pad merge stage, in real
-    coordinates: ``{j in [0, nR-s) : ((j+p) & s) == 0}`` as [start, end)."""
-    out = []
-    x = (p // (2 * s)) * (2 * s)
-    while x < p + nR - s:
-        lo = max(x - p, 0)
-        hi = min(x + s - p, nR - s)
-        if hi > lo:
-            out.append((lo, hi))
-        x += 2 * s
-    return out
-
-
-def _slice_stage(planes, n_keys, s, p, nR):
-    """One ascending stage at stride ``s`` of the virtual-pad merge, as
-    contiguous slices + select + concatenate."""
-    ranges = _stage_ranges(s, p, nR)
-    if not ranges:
-        return planes
-    segs = [[] for _ in planes]
-    pos = 0
-    for a, b in ranges:
-        lo = [pl[a:b] for pl in planes]
-        hi = [pl[a + s: b + s] for pl in planes]
-        swap = P.lex_gt(lo[:n_keys], hi[:n_keys])
-        for i, pl in enumerate(planes):
-            if pos < a:
-                segs[i].append(pl[pos:a])
-            segs[i].append(P.where(swap, hi[i], lo[i]))
-            if b < a + s:
-                segs[i].append(pl[b: a + s])
-            segs[i].append(P.where(swap, lo[i], hi[i]))
-        pos = b + s
-    for i, pl in enumerate(planes):
-        if pos < nR:
-            segs[i].append(pl[pos:nR])
-    return [P.cat(sg) if len(sg) > 1 else sg[0] for sg in segs]
-
-
-def _merge_asc_desc(planes, nR, Q, n_keys, blk):
-    """Ascending bitonic merge of [run A asc, run B desc] (total nR, a
-    multiple of Q): virtual -inf pads in front make it a power-of-two
-    bitonic sequence; stages with stride >= Q run as slice stages, the rest
-    through the span and tail kernels."""
-    T = _next_pow2(nR)
-    p = T - nR
-    s = T // 2
-    while s >= Q:
-        planes = _slice_stage(planes, n_keys, s, p, nR)
-        s //= 2
-    blk_m = min(blk, Q)
-    log_b = _log2(blk_m)
-    max_span = max(1, _log2(max(blk_m // GRAIN, 2)))
-    hi = _log2(Q) - 1
-    while hi >= log_b:
-        lo = max(log_b, hi - max_span + 1)
-        planes = span_call(planes, nR, 1 << hi, 1 << lo, 2 * T, blk_m, n_keys)
-        hi = lo - 1
-    start = min(blk_m, Q) // 2
-    return tail_call(planes, nR, blk_m, n_keys, [(_log2(T) + 1, start)], None)
+        return _core(list(planes), ln, n_keys, blk_s, blk_b, m)
+    return P.lex_sort(planes, n_keys, stable=False)

@@ -18,9 +18,9 @@ element:
   and the index plane a stable fused sort carries, read once and written
   once over the HBM rate (3.35 TB/s); HBM bounds it;
 * ``executor floor`` -- the trips through memory the fused plan makes (its
-  B2 and B3 launches, its phase-0 row sorts and the piece path's slice
-  stages, counted on one call), each reading and writing the planes it was
-  given, over the same rate.
+  B2 and B3 launches, its phase-0 row sorts and the piece path's merges,
+  counted on one call), each reading and writing the planes it was given,
+  over the same rate.
 
 Every timed step first XORs each plane with 0xB5A93E6B cut to its width
 (torch_bench_suite's rehash), so steps chain and no input arrives sorted.
@@ -158,26 +158,27 @@ def executor_trips(planes, n_keys, stable):
     """The trips through memory of one fused sort of ``planes``: {kind:
     (count, bytes read and written)}, kinds ``B2``, ``B3``, ``phase 0`` (the
     ``lex_sort`` calls: the row sorts, and a piece too short for the
-    network sorted whole) and ``slice`` (the piece merges' strides of at
-    least a piece, as elementwise stages)."""
+    network sorted whole) and ``merge`` (the piece path's merges, B7: both
+    runs read once and the merged run written once)."""
     book = {}
     real = {"B2": fs.tail_call, "B3": fs.span_call, "phase 0": fs.P.lex_sort,
-            "slice": fs._slice_stage}
+            "merge": fs.piece_merge}
 
     def counted(kind):
         def fn(ps, *args, **kw):
+            runs = list(ps) + (list(args[0]) if kind == "merge" else [])
             c, b = book.get(kind, (0, 0))
-            book[kind] = (c + 1, b + 2 * sum(p.numel() * p.dtype.itemsize for p in ps))
+            book[kind] = (c + 1, b + 2 * sum(p.numel() * p.dtype.itemsize for p in runs))
             return real[kind](ps, *args, **kw)
         return fn
 
     fs.tail_call, fs.span_call = counted("B2"), counted("B3")
-    fs.P.lex_sort, fs._slice_stage = counted("phase 0"), counted("slice")
+    fs.P.lex_sort, fs.piece_merge = counted("phase 0"), counted("merge")
     try:
         fs.fused_sort(planes[:n_keys], planes[n_keys:], stable=stable)
     finally:
         fs.tail_call, fs.span_call = real["B2"], real["B3"]
-        fs.P.lex_sort, fs._slice_stage = real["phase 0"], real["slice"]
+        fs.P.lex_sort, fs.piece_merge = real["phase 0"], real["merge"]
     return book
 
 

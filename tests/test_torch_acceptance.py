@@ -208,7 +208,7 @@ def test_bound_counts_each_plane_once_each_way(spec, want):
 
 
 def _fs_fns():
-    return (fs.tail_call, fs.span_call, fs.P.lex_sort, fs._slice_stage)
+    return (fs.tail_call, fs.span_call, fs.P.lex_sort, fs.piece_merge)
 
 
 def test_executor_trips_count_the_launches(monkeypatch):
@@ -220,14 +220,19 @@ def test_executor_trips_count_the_launches(monkeypatch):
     for n in (1 << 13, 10_000):  # the power-of-two core, the piece path
         planes = _planes_of(tf.SHAPES[3], n, rng)
         real = _fs_fns()
-        before = {k: _build.KERNELS[k].plain_calls for k in ("bitonic_tail", "bitonic_span")}
+        kinds = ("bitonic_tail", "bitonic_span", "piece_merge")
+        before = {k: _build.KERNELS[k].plain_calls for k in kinds}
         trips = tf.executor_trips(planes, 2, True)
         assert _fs_fns() == real
         assert trips["B2"][0] == _build.KERNELS["bitonic_tail"].plain_calls - before["bitonic_tail"]
         assert trips.get("B3", (0, 0))[0] == (
             _build.KERNELS["bitonic_span"].plain_calls - before["bitonic_span"])
+        assert trips.get("merge", (0, 0))[0] == (
+            _build.KERNELS["piece_merge"].plain_calls - before["piece_merge"])
         assert trips["phase 0"][0] >= 1
-        assert ("slice" in trips) == (n == 10_000)
+        assert ("merge" in trips) == (n == 10_000)
+        if n == 10_000:  # pieces of 8 and 2 x 1024 rows: one merge, 16 bytes a row
+            assert trips["merge"] == (1, 2 * 10_240 * 16)
         # a stable sort's trips carry the index plane: 16 bytes a row
         b2_calls, b2_bytes = trips["B2"]
         assert b2_bytes % (2 * 16) == 0 and b2_bytes >= b2_calls * 2 * 16 * 2048
@@ -243,8 +248,11 @@ def test_floor_table_prints_five_rows_on_the_cpu(monkeypatch):
     assert lines[0] == "device: cpu"
     rows = [line.split(" | ") for line in lines[3:]]
     assert [r[0][2:] for r in rows] == [s[0] for s in tf.SHAPES]
-    for r in rows:
-        assert all(float(v) > 0 for v in r[1:8]) and "B2" in r[-1]
+    for r, shape in zip(rows, tf.SHAPES):
+        # 10,000 takes the piece path: pieces under fused_min_piece sort
+        # whole and merge on B7; 2^12 runs the network
+        trip = "merge 1" if shape[1] == "n10" else "B2"
+        assert all(float(v) > 0 for v in r[1:8]) and trip in r[-1]
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32])

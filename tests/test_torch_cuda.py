@@ -414,6 +414,74 @@ def test_merge_tail_kernel(dev, n, block, dtypes, n_keys, unaligned):
     assert (fm.MERGE_TAIL.launches, fs.TAIL.launches) == (before[0] + 2, before[1])
 
 
+def _ascending_runs(dev, la, lb, dtypes, n_keys, seed, high=7):
+    """Two runs on the card, each sorted ascending by its first ``n_keys``
+    planes, with few values a key plane so that ties cross the runs."""
+    a = P.lex_sort(_planes(dev, la, dtypes, seed, high), n_keys)
+    b = P.lex_sort(_planes(dev, lb, dtypes, seed + 1, high), n_keys)
+    return a, b
+
+
+_MIXED = [U16, U32, U8, U32, U16, U32, U8, U32]
+
+
+@pytest.mark.parametrize("k", range(1, fs.MAX_PLANES + 1))
+def test_piece_merge_kernel_at_tile_edges(dev, k):
+    """B7 against its plain version at every key-plane count (its own tile,
+    ``merge_tile``), on runs that end on, just before and just after tile
+    boundaries, one of them empty or far shorter than a tile; mixed widths
+    and one rider plane where the planes allow."""
+    from rdst_tpu_torch import _build
+
+    tile = fs.merge_tile(k)
+    assert _build.library().rdst_piece_merge_tile(k) == tile
+    dtypes = _MIXED[:k] + ([U32] if k < fs.MAX_PLANES else [])
+    for la, lb in [(tile, tile), (tile - 1, 1), (1, tile), (3 * tile + 1, 2 * tile - 1),
+                   (5, 7 * tile + 3), (0, tile + 1), (tile + 1, 0), (1, 1)]:
+        a, b = _ascending_runs(dev, la, lb, dtypes, k, la + 3 * lb + k)
+        before = fs.PIECE_MERGE.launches, fs.PIECE_MERGE.plain_calls
+        got = fs.piece_merge(a, b, k)
+        assert fs.PIECE_MERGE.launches == before[0] + 1
+        assert fs.PIECE_MERGE.plain_calls == before[1]
+        _same(got, fs.piece_merge_plain(a, b, k))
+
+
+@pytest.mark.parametrize("la,lb,dtypes,n_keys", [
+    (8 << 22, 4 << 22, [U32, U32], 2),            # the 50M u64 sort's merge
+    (8 << 21, 1 << 21, [U32] * 6, 5),             # a 6-plane shard sort's
+    (8 << 21, 1 << 21, [U32, U16, U32, U8, U32, U32], 5),
+])
+def test_piece_merge_kernel_main_path_shapes(dev, la, lb, dtypes, n_keys):
+    """B7 bit-equal to its plain version at the shapes the piece path
+    gives it, with runs that start off a 16-byte boundary too."""
+    a, b = _ascending_runs(dev, la + 1, lb, dtypes, n_keys, la + n_keys, high=1 << 8)
+    _same(fs.piece_merge(a[:la], b, n_keys), fs.piece_merge_plain(a[:la], b, n_keys))
+    _same(fs.piece_merge([p[1:] for p in a], b, n_keys),
+          fs.piece_merge_plain([p[1:] for p in a], b, n_keys))
+
+
+def test_piece_merge_build_has_no_spills(dev):
+    """Every piece_merge.cu instance (partition and tile kernels at 1-8 key
+    planes) builds without spills (nvcc -Xptxas -v)."""
+    import re
+    import subprocess
+    import tempfile
+
+    from rdst_tpu_torch import _build
+
+    src = Path(_build.__file__).resolve().parent / "csrc" / "piece_merge.cu"
+    flags = [f for f in _build._FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run([_build._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+                              str(Path(tmp) / "m.o"), str(src)],
+                             capture_output=True, text=True, check=True)
+    regs = re.findall(r"Used (\d+) registers", res.stderr)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", res.stderr)
+    print(f"piece_merge.cu: {len(regs)} instances, registers {sorted(map(int, regs))}")
+    assert len(regs) >= 16 and len(spills) >= len(regs)
+    assert all(x == "0" and y == "0" for x, y in spills), res.stderr
+
+
 def _sorted_runs(dev, n_runs, m, seed):
     rng = np.random.default_rng(seed)
     keys = np.sort(rng.integers(0, 5000, size=(n_runs, m)).astype(np.uint32), 1)
@@ -814,6 +882,8 @@ def test_kernel_wrappers_raise_on_bad_input(dev):
     sizes = [torch.zeros(2, dtype=torch.int64, device=dev)] * 2
     with pytest.raises(TypeError):  # B6 carries u32 planes only
         rd.remote_dma_exchange_cuda([[P.widen(p[0])]] * 2, sizes, sizes, 16)
+    with pytest.raises(ValueError):  # B7 merges unsigned planes only
+        fs.piece_merge_cuda([P.widen(p[0])], [P.widen(p[0])], 1)
 
 
 # ---------------------------------------------------------------------------
@@ -1021,19 +1091,21 @@ def test_table_ops_on_the_card(dev):
 
 def test_tpch_queries_on_the_card(dev, monkeypatch):
     """TPC-H Q1 and Q18 (``table.tpch``) at SF 1, chunk 1 of 4 (375,000
-    orders, ~1.5M lines) on make_mesh(8) on the card, B2/B3 in Q18's
-    aggregate (``fused_min_elems`` lowered to its shards) and lex_sort in
-    Q1's: no plain version on a CUDA tensor, and equal to the plain
-    reference of ``tests/tpch_plain.py`` on the card."""
+    orders, ~1.5M lines) on make_mesh(8) on the card, B2/B3 and the piece
+    merge B7 in Q18's aggregate (``fused_min_elems`` and ``fused_min_piece``
+    lowered to its shards and their pieces) and lex_sort in Q1's: no plain
+    version on a CUDA tensor, and equal to the plain reference of
+    ``tests/tpch_plain.py`` on the card."""
     import tpch_plain as tp
     from rdst_tpu_torch.table import Table, tpch
 
     monkeypatch.setattr(config, "fused_min_elems", 1 << 14)
+    monkeypatch.setattr(config, "fused_min_piece", 1 << 13)
     li, od, cu = tp.generate(1, 1, 4, 2**31 + 41, dev)
     tables = [Table(d) for d in (li, od, cu)]
     mesh = tpar.make_mesh(8, device=dev)
     plain = _plain_calls()
-    before = fs.TAIL.launches, rd.EXCHANGE.launches
+    before = fs.TAIL.launches, rd.EXCHANGE.launches, fs.PIECE_MERGE.launches
     for delta, quantity in ((60, 250), (120, 300)):
         got = tpch.q1(tables[0], delta_days=delta, mesh=mesh)
         want = tp.q1_plain(li, delta)
@@ -1045,4 +1117,5 @@ def test_tpch_queries_on_the_card(dev, monkeypatch):
         for c in tp.Q18_COLUMNS:
             assert torch.equal(got[c], want[c]), c
     assert fs.TAIL.launches > before[0] and rd.EXCHANGE.launches > before[1]
+    assert fs.PIECE_MERGE.launches > before[2]
     assert _plain_calls() == plain

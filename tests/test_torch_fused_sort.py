@@ -539,3 +539,183 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         fs.span_cuda(p, 1024, 256, 128, 512, 256, 1)
     assert (fs.TAIL.launches, fs.SPAN.launches) == before
+
+
+# -- B7, the piece merge ------------------------------------------------------
+
+
+def _runs(rng, la, lb, dtypes, n_keys, values=3):
+    """Two ascending runs (by the first ``n_keys`` planes) of few values a
+    key plane, so ties cross the runs; every other plane a random rider."""
+    out = []
+    for ln in (la, lb):
+        planes = [rng.integers(0, min(values, np.iinfo(dt).max + 1), size=ln)
+                  .astype(dt) if j < n_keys else
+                  rng.integers(0, np.iinfo(dt).max + 1, size=ln, dtype=np.uint64).astype(dt)
+                  for j, dt in enumerate(dtypes)]
+        order = np.lexsort(planes[:n_keys][::-1])
+        out.append([p[order] for p in planes])
+    return out
+
+
+def _merge_oracle(a, b, n_keys):
+    """The stable lexsort of a ++ b: on equal keys, a's elements first."""
+    cat = [np.concatenate([x, y]) for x, y in zip(a, b)]
+    order = np.lexsort(cat[:n_keys][::-1])
+    return [c[order] for c in cat], order
+
+
+@pytest.mark.parametrize("la,lb,dtypes,n_keys,values", [
+    (1000, 1000, [np.uint32], 1, 3),
+    (3000, 17, [np.uint32, np.uint32], 2, 3),
+    (5, 4000, [np.uint8, np.uint16, np.uint32], 3, 3),
+    (3841, 3839, [np.uint16, np.uint32, np.uint8, np.uint32, np.uint16, np.uint32], 5, 3),
+    (2304, 1, [np.uint8, np.uint32, np.uint8, np.uint16, np.uint32], 4, 2),
+    (1, 1, [np.uint32, np.uint8], 1, 1),
+])
+def test_piece_merge_plain_matches_oracle(la, lb, dtypes, n_keys, values):
+    """The plain B7 is the stable merge: keys and riders of the stable
+    lexsort of a ++ b, ties across the runs with a's elements first (an
+    origin rider shows it); u8, u16 and u32 planes mixed, 1-5 key planes."""
+    rng = np.random.default_rng(la * 7 + lb + n_keys)
+    a, b = _runs(rng, la, lb, dtypes, n_keys, values)
+    a.append(np.zeros(la, np.uint8))  # origin: 0 for a, 1 for b
+    b.append(np.ones(lb, np.uint8))
+    before = fs.PIECE_MERGE.plain_calls
+    got = fs.piece_merge(_t(a), _t(b), n_keys)
+    assert fs.PIECE_MERGE.plain_calls == before + 1
+    want, _ = _merge_oracle(a, b, n_keys)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.from_numpy(w).dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+    keys = [w.astype(np.int64) for w in want[:n_keys]]
+    tie = np.ones(la + lb - 1, bool)
+    for k in keys:
+        tie &= k[:-1] == k[1:]
+    assert tie.any()  # ties exist, and across them a's elements come first
+    assert not (want[-1][:-1][tie] > want[-1][1:][tie]).any()
+
+
+def _source_constants():
+    import re
+    from pathlib import Path
+
+    src = (Path(fs.__file__).resolve().parent.parent / "csrc" / "piece_merge.cu").read_text()
+    threads = int(re.search(r"constexpr int kMergeThreads = (\d+);", src).group(1))
+    m = re.search(r"return n_keys <= (\d+) \? (\d+) : \(n_keys <= (\d+) \? (\d+) : (\d+)\);", src)
+    k1, e1, k2, e2, e3 = map(int, m.groups())
+    return threads, {k: e1 if k <= k1 else e2 if k <= k2 else e3 for k in range(1, 9)}
+
+
+def test_merge_tile_mirrors_the_kernel():
+    """MERGE_THREADS and MERGE_ELEMS are the kernel's constants; E is odd
+    (bank-free index writes) and a tile's shared memory fits a block."""
+    threads, elems = _source_constants()
+    assert (threads, elems) == (fs.MERGE_THREADS, fs.MERGE_ELEMS)
+    for k, e in elems.items():
+        assert e % 2 == 1
+        assert (k + 1) * fs.merge_tile(k) * 4 <= fs._SMEM_MAX
+
+
+def _lt(x, y):
+    return tuple(int(v) for v in x) < tuple(int(v) for v in y)
+
+
+def _merge_model(a, b, n_keys, threads, e):
+    """csrc/piece_merge.cu block by block and thread by thread: the
+    partition's binary search on every tile boundary, then in each tile
+    every thread's search and serial merge of ``e`` outputs.  Returns the
+    source of each output as an index into a ++ b."""
+    ka = list(zip(*a[:n_keys]))
+    kb = list(zip(*b[:n_keys]))
+    la, lb = len(ka), len(kb)
+    n, nv = la + lb, threads * e
+
+    def corank(diag, xa, xb):
+        lo, hi = max(0, diag - len(xb)), min(diag, len(xa))
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            if _lt(xb[diag - 1 - mid], xa[mid]):
+                hi = mid
+            else:
+                lo = mid + 1
+        return lo
+
+    tiles = -(-n // nv)
+    splits = [corank(min(t * nv, n), ka, kb) for t in range(tiles + 1)]
+    src = []
+    for t in range(tiles):
+        d0, d1 = t * nv, min(t * nv + nv, n)
+        a0, a1 = splits[t], splits[t + 1]
+        b0 = d0 - a0
+        na, nt = a1 - a0, d1 - d0
+        win = ka[a0:a1] + kb[b0:b0 + nt - na]
+        sidx = [None] * nt
+        for tid in range(threads):
+            d = min(tid * e, nt)
+            ai = corank(d, win[:na], win[na:])
+            bi = na + d - ai
+            for i in range(e):
+                pos = tid * e + i
+                if pos >= nt:
+                    break
+                if bi >= nt or (ai < na and not _lt(win[bi], win[ai])):
+                    sidx[pos], ai = ai, ai + 1
+                else:
+                    sidx[pos], bi = bi, bi + 1
+        src += [a0 + s if s < na else la + b0 + s - na for s in sidx]
+    return np.array(src)
+
+
+@pytest.mark.parametrize("la,lb,n_keys,threads,e", [
+    (300, 200, 1, 8, 5),      # many tiles of 40
+    (37, 400, 2, 4, 3),       # one run shorter than a tile
+    (250, 250, 3, 16, 7),     # a length that is no multiple of the tile
+    (96, 0, 1, 8, 3),         # an empty run
+    (500, 511, 2, 256, 15),   # the kernel's tile at 1-2 keys: one partial tile
+    (2000, 1900, 4, 256, 11), # its tile at 3-4 keys: several tiles
+])
+def test_piece_merge_kernel_model(la, lb, n_keys, threads, e):
+    """The kernel's partition and tile merge, modelled element by element,
+    give the stable merge's order (a's elements first on ties)."""
+    rng = np.random.default_rng(la + 3 * lb + n_keys)
+    dtypes = [np.uint32, np.uint16, np.uint8, np.uint32][:n_keys]
+    a, b = _runs(rng, la, lb, dtypes, n_keys, values=4)
+    _, order = _merge_oracle(a, b, n_keys)
+    np.testing.assert_array_equal(_merge_model(a, b, n_keys, threads, e), order)
+
+
+@pytest.mark.parametrize("npay", [0, 1])
+@pytest.mark.parametrize("stable", [False, True])
+@pytest.mark.parametrize("n,pieces", [(12000, 2), (12288, 2), (11000, 3), (14400, 4)])
+def test_piece_path_merges(monkeypatch, n, pieces, stable, npay):
+    """The piece path at T = 2^14 (Q = 1024) with pieces through the core:
+    M = 12 (8 + 4), 11 (8 + 2 + 1) and 15 (8 + 4 + 2 + 1) pieces of Q; 12288
+    has no pad.  Each piece after the first merges once on B7; stable
+    outputs are bit-equal, unstable ones a (key, payload) multiset, with the
+    late pad marker where an unstable sort with a payload pads."""
+    monkeypatch.setattr(fs.config, "fused_min_piece", 1024)
+    rng = np.random.default_rng(n + 10 * stable + npay)
+    keys = rng.integers(0, 2**32, size=(2, n), dtype=np.uint32)
+    keys[0] %= 40
+    keys[:, :23] = 0xFFFFFFFF  # real keys equal to the pad's
+    pays = rng.integers(0, 2**32, size=(npay, n), dtype=np.uint32)
+    before = fs.PIECE_MERGE.plain_calls, fs.TAIL.plain_calls
+    out_k, out_p = _sort(keys, pays, stable=stable, row=256, block=1024)
+    assert fs.PIECE_MERGE.plain_calls - before[0] == pieces - 1
+    assert fs.TAIL.plain_calls > before[1]
+    (_check_stable if stable else _check_unstable)(keys, pays, out_k, out_p)
+
+
+def test_piece_merge_refuses_bad_runs():
+    """B7's wrapper launches or raises: CPU planes never reach the kernel,
+    and runs that differ in planes or dtypes are refused."""
+    a = [torch.zeros(10, dtype=torch.uint32)]
+    before = fs.PIECE_MERGE.launches
+    with pytest.raises(ValueError):
+        fs.piece_merge_cuda(a, a, 1)
+    with pytest.raises(ValueError):
+        fs.piece_merge(a, [torch.zeros(10, dtype=torch.uint16)], 1)
+    with pytest.raises(ValueError):
+        fs.piece_merge(a, a * 2, 1)
+    assert fs.PIECE_MERGE.launches == before
