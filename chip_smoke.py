@@ -81,9 +81,10 @@ Phases, each printing its own lines:
        - the native host runtime (``native/host.py``), built with g++: its
          sorts at 2^20 and 2^10 keys and its histogram against their numpy
          versions, and the time a thread takes to start;
-       - the crossover: the builder's host path against its device path,
-         numpy in and out, for five calls at every power of two from 2 to
-         2^22 (host clock); the host path must launch no kernel;
+       - the numpy calls: five calls of the builder, numpy in and out, at
+         every power of two from 2 to 2^22 on the device path and at three
+         sizes on the host path (``host_sort_max`` raised), each equal to
+         numpy; the host path must launch no kernel;
        - the trace, in a fresh process (``chip_smoke.py --trace``): one
          ``Sorter.run`` of 2^25 u64 keys on the card inside
          ``utils.trace.profile_to``, whose trace must hold the B1, B2 and
@@ -162,7 +163,8 @@ Phases, each printing its own lines:
          --device-flow``): the 52 cases of the JAX package's
          ``tests/test_ci_matrix.py``, ``test_device_flow.py`` and
          ``test_large_adversarial.py`` at their sizes
-         (``DEVICE_FLOW_CASES``: ``with_parallel(False)`` over 10 dtypes,
+         (``tests/flow_cases.py``, which the CPU tests share:
+         ``DEVICE_FLOW_CASES``, ``with_parallel(False)`` over 10 dtypes,
          the single-tile sizes, four pinned plans three times each, stable,
          at 100,000 and 2^22 + 3, f64 with a payload stable and unstable,
          u64 with a payload against the native host runtime, the default
@@ -174,15 +176,14 @@ Phases, each printing its own lines:
          tests hold to the JAX package's) and its result bit-equal to its
          numpy oracle; the child holds B1 at every length and B2-B5 at
          every shape the cases launched against their plain versions;
-  4. the copy-backs of the process's numpy answers by the page-locked
-     block they landed in (recycled or newly pinned, ``_build.COPY_BACKS``)
-     beside the launch counts, then one JSON line of the kernels, then the
+  4. the launch counts, then one JSON line of the kernels, then the
      result line.  Its times are those of each kernel's most-launched shape
      on the shuffle (B2-B5), of B6 at the stable run's exchange, and of B1
      at 2^25 x 2 words.
 
 Every check prints the kernel's bound beside its time: the bytes it must
-move (each input read once, each output written once) over 3.35 TB/s, or
+move (each input read once, each output written once) over the HBM rate of
+``benchmark/peaks.json`` (3.35 TB/s), or
 its operations over 67 T/s (the data sheet's float32 rate outside the
 tensor cores, standing in for 32-bit integer operations), whichever is
 longer; for the compare-exchange kernels a compare-exchange is one compare
@@ -211,13 +212,14 @@ import subprocess
 import sys
 import threading
 import time
-import zlib
 
 import numpy as np
 
 SEED = 20261016
 REPS = 5
-HBM = 3.35e12  # bytes/s, NVIDIA H100 SXM
+with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark",
+                       "peaks.json")) as _f:
+    HBM = json.load(_f)["hbm_bytes_per_s"]  # bytes/s, the benchmark's figure
 ALU = 67e12  # operations/s: float32 outside the tensor cores, for int32 too
 
 # (kernel name, source, the Pallas call it replaces)
@@ -1501,19 +1503,20 @@ def host_runtime(rng):
     print("host_histogram 2^20 u32, levels 0-3: equal to np.bincount")
 
 
-CROSSOVER_SIZES = [1 << e for e in range(1, 23)]
+NUMPY_SIZES = [1 << e for e in range(1, 23)]
+HOST_PATH_SIZES = (1 << 4, 1 << 10, 1 << 15)
 
 
-def crossover(rt, config, _build, rng, launches):
-    """The builder's host path against its device path, numpy in and numpy
-    out, at every power of two from 2 to 2^22: ``radix_sort_unstable`` on
-    u32, u64 and f64, ``sort_key_value(stable=True)`` of u32 keys with a
-    u32 payload, and stable ``argsort`` of u64.  Each warm, the median of
-    REPS on the host clock; the host path with ``host_sort_max`` above the
-    size, the device path with it 0.  Every result equals numpy's.  The host
-    path's launches are counted and must be 0; the device path's are the
-    phase's, B1 among them above ``sorter.COMPARATIVE_CUTOFF`` keys (below
-    it the Sorter sorts without a histogram)."""
+def numpy_calls(rt, config, _build, rng, launches):
+    """The builder's five calls with numpy in and numpy out
+    (``radix_sort_unstable`` on u32, u64 and f64, ``sort_key_value(stable=
+    True)`` of u32 keys with a u32 payload, stable ``argsort`` of u64), each
+    equal to numpy: once at every power of two from 2 to 2^22 on the device
+    path (``host_sort_max`` 0), with B1 among its launches above
+    ``sorter.COMPARATIVE_CUTOFF`` keys (below it the Sorter sorts without a
+    histogram), and once at each of ``HOST_PATH_SIZES`` on the host path
+    (``host_sort_max`` above the size), which must launch no kernel.  The
+    device path's launches are the phase's."""
     from rdst_tpu_torch.sorter import COMPARATIVE_CUTOFF
 
     calls = {
@@ -1541,37 +1544,23 @@ def crossover(rt, config, _build, rng, launches):
             return all(same(x, y) for x, y in zip(a, b))
         return np.array_equal(a, b)
 
-    def zero():
-        for k in _build.KERNELS.values():
-            k.launches = 0
-
-    def counts():
-        return {name: k.launches for name, k in _build.KERNELS.items()}
-
     saved = config.host_sort_max
-    table = {}
     dev_counts = {name: 0 for name in _build.KERNELS}
     t_phase = time.perf_counter()
     try:
         for label, make in calls.items():
-            for n in CROSSOVER_SIZES:
+            for n in NUMPY_SIZES:
                 args, fn, oracle = make(n)
                 want = oracle(*args)
-                row = {}
-                for path, limit in (("host", 1 << 30), ("device", 0)):
+                paths = [("device", 0)] + [("host", 1 << 30)] * (n in HOST_PATH_SIZES)
+                for path, limit in paths:
                     config.host_sort_max = limit
-                    zero()
-                    got = fn(*args)  # warm
-                    if not same(got, want):
+                    for k in _build.KERNELS.values():
+                        k.launches = 0
+                    if not same(fn(*args), want):
                         raise AssertionError(f"{label} 2^{n.bit_length() - 1} "
                                              f"{path} path differs from numpy")
-                    times = []
-                    for _ in range(REPS):
-                        t0 = time.perf_counter()
-                        fn(*args)
-                        times.append((time.perf_counter() - t0) * 1e3)
-                    row[path] = statistics.median(times)
-                    c = counts()
+                    c = {name: k.launches for name, k in _build.KERNELS.items()}
                     if path == "host" and any(c.values()):
                         raise AssertionError(f"{label} 2^{n.bit_length() - 1}: the host "
                                              f"path launched kernels: {c}")
@@ -1581,32 +1570,13 @@ def crossover(rt, config, _build, rng, launches):
                                                  "device path launched no B1")
                         for name in dev_counts:
                             dev_counts[name] += c[name]
-                table[label, n] = row
     finally:
         config.host_sort_max = saved
     for name in KERNEL_INFO:
         launches[name] += dev_counts.get(name, 0)
-    print(f"crossover: host path vs device path, numpy in and out, host clock "
-          f"(ms, median of {REPS}, warm); host CPU {cpu_model()}, os.cpu_count() "
-          f"{os.cpu_count()}; host-path launches 0 at every size; device-path "
-          f"launches {dev_counts}")
-    print("crossover: size | " + " | ".join(f"{label} host / device" for label in calls))
-    ok_at = {}
-    for n in CROSSOVER_SIZES:
-        rows = [table[label, n] for label in calls]
-        ok_at[n] = all(r["host"] <= r["device"] for r in rows)
-        print(f"crossover: 2^{n.bit_length() - 1} | " + " | ".join(
-            f"{r['host']:.4f} / {r['device']:.4f}" for r in rows)
-            + f" | host no slower for every call: {ok_at[n]}")
-    largest = max((n for n in CROSSOVER_SIZES if ok_at[n]), default=0)
-    prefix = 0
-    for n in CROSSOVER_SIZES:
-        if not ok_at[n]:
-            break
-        prefix = n
-    print(f"crossover: the largest size at which the host path is no slower for "
-          f"every call: {largest}; the largest below which it is no slower at every "
-          f"size: {prefix}; config.host_sort_max is {saved}; the phase took "
+    print(f"numpy calls: {len(calls)} calls at {len(NUMPY_SIZES)} sizes (2 to 2^22) on "
+          f"the device path and at {len(HOST_PATH_SIZES)} on the host path, every result "
+          f"equal to numpy's; host-path launches 0; device-path launches {dev_counts}; "
           f"{time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2642,280 +2612,19 @@ def acceptance_phase(launches):
 
 
 # -- the device-flow phase ------------------------------------------------------
-# The cases of the JAX package's tests/test_ci_matrix.py, test_device_flow.py
-# and test_large_adversarial.py at their sizes, numpy in and out through the
-# default entry points with config.host_sort_max = 0.  name: (call, keys,
-# payload dtype).  The calls: "unstable" radix_sort_unstable(x), "serial"
-# radix_sort_builder(x).with_parallel(False).sort(), "kv" / "kv unstable"
-# sort_key_value(x, v, stable=...), "stable" radix_sort_builder(x, [v])
-# .with_stable(True).sort(), and an Algorithm's name: the same with
-# .with_algorithm(...), run three times.  The keys, made by flow_input:
-# ("typed", dtype, n, specials) the full range of an integer dtype or normal
-# floats (the first 8 +-NaN, +-Inf, +-0, +-1 with specials); ("u32", n, hot)
-# uniform u32 (the first half ``hot`` where it is not None); ("below", dtype,
-# n, high); ("bimodal", dtype, n, shift) tests/helpers.gen_bimodal's input;
-# ("mask", n, mask); ("spike", n): one value with 5 outliers, shuffled.
-FLOW_TYPES = ("uint8", "uint16", "uint32", "uint64", "int8", "int16", "int32",
-              "int64", "float32", "float64")
-DET_ALGOS = ("LSB", "SKA", "REGIONS", "COMPARATIVE")
-DET_SIZES = (100_000, (1 << 22) + 3)  # the second above fused_min_elems
-DET_RUNS = 3
-MASKS = (0xFF000000, 0x000000FF, 0xAAAAAAAA, 0x00FFFF00)
-SCANNING = "flow scanning 50000001"
-DEVICE_FLOW_CASES = {
-    **{f"ci serial {dt}": ("serial", ("typed", dt, 8000, False), None)
-       for dt in FLOW_TYPES},
-    **{f"ci one tile {n}": ("unstable", ("u32", n, None), None)
-       for n in (129, 2048, 2049, 4095)},
-    **{f"ci determinism {a} {n}": (a, ("u32", n, None), "uint32")
-       for n in DET_SIZES for a in DET_ALGOS},
-    "ci f64 payload stable": ("kv", ("typed", "float64", 30_000, True), "uint64"),
-    "ci f64 payload unstable": ("kv unstable", ("typed", "float64", 30_000, True),
-                                "uint64"),
-    "ci u64 payload host": ("stable", ("below", "uint64", 200_000, 1 << 16), "uint32"),
-    **{f"flow {dt}": ("unstable", ("typed", dt, 10_000, True), None)
-       for dt in FLOW_TYPES},
-    "flow stable kv u16": ("kv", ("below", "uint16", 20_000, 64), "uint32"),
-    "flow recombinating 1200000": ("unstable", ("u32", 1_200_000, None), None),
-    "flow mtlsb 1000000 skewed": ("kv", ("u32", 1_000_000, 0xDEADBEEF), "uint32"),
-    "flow regions 4200000 skewed": ("unstable", ("u32", 4_200_000, 12345), None),
-    SCANNING: ("unstable", ("u32", 50_000_001, None), None),
-    **{f"adv bimodal u32 {n} shift {s}": ("unstable", ("bimodal", "uint32", n, s), None)
-       for n in (1_000_000, 2_500_000) for s in (0, 16)},
-    **{f"adv bimodal u64 1500000 shift {s}": (
-        "unstable", ("bimodal", "uint64", 1_500_000, s), None) for s in (0, 32)},
-    **{f"adv mask 0x{m:08X}": ("unstable", ("mask", 2_000_000, m), None) for m in MASKS},
-    "adv spike 5000000": ("unstable", ("spike", 5_000_000), None),
-    "adv bimodal u64 payload stable": ("kv", ("bimodal", "uint64", 1_000_000, 32),
-                                       "uint32"),
-}
-
-# Each case's "(level) PLAN: ..." lines, joined by " | ": the port's picks on
-# the card must be these; tests/test_torch_{ci_matrix,device_flow,
-# large_adversarial}.py hold them against the JAX package's traces on the
-# CPU (50M + 1 against both packages' StandardTuner ladder).
-DEVICE_FLOW_TRACES = {
-    'ci serial uint8': '(0) PLAN: Lsb len=8000',
-    'ci serial uint16': '(1) PLAN: Lsb len=8000',
-    'ci serial uint32': '(3) PLAN: Lsb len=8000',
-    'ci serial uint64': '(7) PLAN: Lsb len=8000',
-    'ci serial int8': '(0) PLAN: Lsb len=8000',
-    'ci serial int16': '(1) PLAN: Lsb len=8000',
-    'ci serial int32': '(3) PLAN: Lsb len=8000',
-    'ci serial int64': '(7) PLAN: Lsb len=8000',
-    'ci serial float32': '(3) PLAN: LrLsb len=8000',
-    'ci serial float64': '(7) PLAN: LrLsb len=8000',
-    'ci one tile 129': '(3) PLAN: Lsb len=129',
-    'ci one tile 2048': '(3) PLAN: Lsb len=2048',
-    'ci one tile 2049': '(3) PLAN: Lsb len=2049',
-    'ci one tile 4095': '(3) PLAN: Lsb len=4095',
-    'ci determinism LSB 100000': '(3) PLAN: Lsb len=100000',
-    'ci determinism SKA 100000': '(3) PLAN: Ska len=100000',
-    'ci determinism REGIONS 100000': '(3) PLAN: Regions len=100000',
-    'ci determinism COMPARATIVE 100000': '(3) PLAN: Comparative len=100000',
-    'ci determinism LSB 4194307': '(3) PLAN: Lsb len=4194307',
-    'ci determinism SKA 4194307': '(3) PLAN: Ska len=4194307',
-    'ci determinism REGIONS 4194307': '(3) PLAN: Regions len=4194307',
-    'ci determinism COMPARATIVE 4194307': '(3) PLAN: Comparative len=4194307',
-    'ci f64 payload stable': '(7) PLAN: LrLsb len=30000',
-    'ci f64 payload unstable': '(7) PLAN: LrLsb len=30000',
-    'ci u64 payload host': '(7) PLAN: LrLsb len=200000',
-    'flow uint8': '(0) PLAN: Lsb len=10000',
-    'flow uint16': '(1) PLAN: Lsb len=10000',
-    'flow uint32': '(3) PLAN: Lsb len=10000',
-    'flow uint64': '(7) PLAN: Lsb len=10000',
-    'flow int8': '(0) PLAN: Lsb len=10000',
-    'flow int16': '(1) PLAN: Lsb len=10000',
-    'flow int32': '(3) PLAN: Lsb len=10000',
-    'flow int64': '(7) PLAN: Lsb len=10000',
-    'flow float32': '(3) PLAN: LrLsb len=10000',
-    'flow float64': '(7) PLAN: LrLsb len=10000',
-    'flow stable kv u16': '(1) PLAN: LrLsb len=20000',
-    'flow recombinating 1200000': '(3) PLAN: Recombinating len=1200000',
-    'flow mtlsb 1000000 skewed': '(3) PLAN: MtLsb len=1000000',
-    'flow regions 4200000 skewed': '(3) PLAN: Regions len=4200000',
-    'flow scanning 50000001': '(3) PLAN: Scanning len=50000001',
-    'adv bimodal u32 1000000 shift 0': '(3) PLAN: Recombinating len=1000000',
-    'adv bimodal u32 1000000 shift 16': '(3) PLAN: MtLsb len=1000000',
-    'adv bimodal u32 2500000 shift 0': '(3) PLAN: Recombinating len=2500000',
-    'adv bimodal u32 2500000 shift 16': '(3) PLAN: MtLsb len=2500000',
-    'adv bimodal u64 1500000 shift 0': '(7) PLAN: Recombinating len=1500000',
-    'adv bimodal u64 1500000 shift 32': '(7) PLAN: MtLsb len=1500000',
-    'adv mask 0xFF000000': '(3) PLAN: Recombinating len=2000000',
-    'adv mask 0x000000FF': '(3) PLAN: MtLsb len=2000000',
-    'adv mask 0xAAAAAAAA': '(3) PLAN: MtLsb len=2000000',
-    'adv mask 0x00FFFF00': '(3) PLAN: MtLsb len=2000000',
-    'adv spike 5000000': '(3) PLAN: Regions len=5000000',
-    'adv bimodal u64 payload stable': '(7) PLAN: MtLsb len=1000000',
-}
 
 
-def gen_bimodal(rng, n, dtype, shift):
-    """``tests/helpers.gen_bimodal``: a random pool, half shifted right and
-    half shifted left (on the unsigned view)."""
-    info = np.iinfo(dtype)
-    x = rng.integers(info.min, info.max, size=n, endpoint=True, dtype=dtype)
-    if shift:
-        u = x.view(f"uint{np.dtype(dtype).itemsize * 8}")
-        s = u.dtype.type(shift)
-        u[: n // 2] >>= s
-        u[n // 2:] <<= s
-    return x
-
-
-def flow_seed(name) -> int:
-    return zlib.crc32(name.encode())
-
-
-def flow_input(name):
-    """A case's numpy keys and payload (``np.arange``, or None), made from
-    its own seed."""
-    _, (kind, *a), vdt = DEVICE_FLOW_CASES[name]
-    rng = np.random.default_rng(flow_seed(name))
-    if kind == "typed":
-        dt, n, specials = a
-        if np.dtype(dt).kind == "f":
-            x = rng.standard_normal(n).astype(dt)
-            if specials:
-                x[:8] = [np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0]
-        else:
-            info = np.iinfo(dt)
-            x = rng.integers(info.min, info.max, n, endpoint=True, dtype=dt)
-    elif kind == "u32":
-        n, hot = a
-        x = rng.integers(0, 2**32, size=n, dtype=np.int64).astype(np.uint32)
-        if hot is not None:
-            x[: n // 2] = hot
-    elif kind == "below":
-        dt, n, high = a
-        x = rng.integers(0, high, size=n, dtype=dt)
-    elif kind == "bimodal":
-        dt, n, shift = a
-        x = gen_bimodal(rng, n, np.dtype(dt), shift)
-    elif kind == "mask":
-        n, mask = a
-        x = rng.integers(0, 2**32, size=n, dtype=np.uint32) & np.uint32(mask)
-    else:  # spike
-        (n,) = a
-        x = np.full(n, 0x0000_0100, dtype=np.uint32)
-        x[:5] = [0xFFFFFFFF, 1, 2, 3, 0x80000000]
-        x = x[rng.permutation(n)]
-    return x, (None if vdt is None else np.arange(x.size, dtype=vdt))
-
-
-def flow_call(pkg, name, keys, payload, **kw):
-    """One call of the case on ``pkg`` (``rdst_tpu_torch``, or the JAX
-    package in the tests, with ``kw`` empty): (keys, payload or None)."""
-    call = DEVICE_FLOW_CASES[name][0]
-    if call == "unstable":
-        return pkg.radix_sort_unstable(keys, **kw), None
-    if call == "serial":
-        return pkg.radix_sort_builder(keys, **kw).with_parallel(False).sort(), None
-    if call.startswith("kv"):
-        return pkg.sort_key_value(keys, payload, stable=call == "kv", **kw)
-    b = pkg.radix_sort_builder(keys, [payload], **kw).with_stable(True)
-    if call != "stable":
-        b = b.with_algorithm(pkg.Algorithm[call])
-    k, (p,) = b.sort()
-    return k, p
-
-
-def flow_runs(pkg, config, name, keys, payload, runs=None, **kw):
-    """The case's calls (``runs``; by default ``DET_RUNS`` for a pinned
-    Algorithm, else one) with ``config.host_sort_max = 0``: a list of
-    (keys, payload, trace), the trace the call's ``(level) PLAN:`` lines
-    joined by " | "."""
-    if runs is None:
-        runs = DET_RUNS if DEVICE_FLOW_CASES[name][0] in DET_ALGOS else 1
-    out = []
-    saved = config.host_sort_max
-    config.host_sort_max = 0
-    try:
-        for _ in range(runs):
-            trace = io.StringIO()
-            with config.work_profiles(True), contextlib.redirect_stdout(trace):
-                k, p = flow_call(pkg, name, keys, payload, **kw)
-            out.append((np.asarray(k), None if p is None else np.asarray(p),
-                        " | ".join(trace.getvalue().strip().splitlines())))
-    finally:
-        config.host_sort_max = saved
-    return out
-
-
-def _bits(a):
-    return a.view(f"uint{a.itemsize * 8}") if a.dtype.kind == "f" else a
-
-
-def flow_oracle(keys):
-    """The stable order of ``keys`` in the sort's total order: floats by
-    their bits with the sign folded (every negative below every positive,
-    -NaN first and NaN last)."""
-    if keys.dtype.kind == "f":
-        u = _bits(keys)
-        top = u.dtype.type(1 << (keys.itemsize * 8 - 1))
-        keys = np.where(u & top, ~u, u | top)
-    return np.argsort(keys, kind="stable")
-
-
-def flow_check(name, keys, payload, got_keys, got_payload):
-    """Raise unless a case's result is its numpy oracle's: keys bit-equal;
-    a stable payload bit-equal, an unstable one the same (key, payload)
-    multiset."""
-    order = flow_oracle(keys)
-    if got_keys.dtype != keys.dtype or not np.array_equal(_bits(got_keys),
-                                                          _bits(keys[order])):
-        raise AssertionError(f"{name}: keys differ from the numpy oracle")
-    if payload is None:
-        return
-    if DEVICE_FLOW_CASES[name][0] == "kv unstable":
-        kb = _bits(got_keys)
-        got = np.lexsort((got_payload, kb))
-        want = np.lexsort((payload, _bits(keys)))
-        same = (np.array_equal(kb[got], _bits(keys)[want])
-                and np.array_equal(got_payload[got], payload[want]))
-    else:
-        same = np.array_equal(got_payload, payload[order])
-    if got_payload.dtype != payload.dtype or not same:
-        raise AssertionError(f"{name}: payload differs from the numpy oracle")
-
-
-def flow_case(rt, config, host, kernels, name, **kw):
-    """Run one case through ``rt`` (``kw``: its ``device``, on the CPU in
-    the tests) with the launch counts of ``kernels`` set to 0 just before
-    and read just after, and hold it: its PLAN trace to
-    ``DEVICE_FLOW_TRACES``, its result to its numpy oracle, a pinned
-    Algorithm's three runs bit for bit to each other and the u64 payload
-    case to ``host.host_radix_sort`` too.  Returns the runs (as
-    :func:`flow_runs`), the launch counts and the case's line."""
-    keys, payload = flow_input(name)
-    for k in kernels.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    runs = flow_runs(rt, config, name, keys, payload, **kw)  # numpy out: synced
-    dt = time.perf_counter() - t0
-    counts = {k: kernels[k].launches for k in KERNEL_INFO}
-    for got_keys, got_payload, trace in runs:
-        if trace != DEVICE_FLOW_TRACES[name]:
-            raise AssertionError(f"{name}: plan {trace!r}, expected "
-                                 f"{DEVICE_FLOW_TRACES[name]!r}")
-        flow_check(name, keys, payload, got_keys, got_payload)
-    first_keys, first_payload, plan = runs[0]
-    for got_keys, got_payload, _ in runs[1:]:
-        if not (np.array_equal(got_keys, first_keys)
-                and np.array_equal(got_payload, first_payload)):
-            raise AssertionError(f"{name}: the runs differ from each other")
-    if name == "ci u64 payload host":
-        hk, hv = host.host_radix_sort(keys.copy(), payload.copy())
-        if not (np.array_equal(first_keys, hk) and np.array_equal(first_payload, hv)):
-            raise AssertionError(f"{name}: differs from host_radix_sort")
-    line = (f"case {name}: {len(runs)} call(s) in {dt:.4f} s (host clock, numpy in "
-            f"and out); plan: {plan}; launches {counts}; bit-equal to its oracle")
-    return runs, counts, line
+def flow_cases():
+    """``tests/flow_cases.py``: the device-flow case table, its inputs,
+    calls and checks, which the CPU tests share."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import flow_cases as fc
+    return fc
 
 
 def device_flow_child() -> int:
     """Every case of ``DEVICE_FLOW_CASES`` on the card through
-    :func:`flow_case`, one line a case, under :func:`recorded_child`, which
+    ``flow_case``, one line a case, under :func:`recorded_child`, which
     holds B1 at every length the cases launched it with."""
     def run():
         import rdst_tpu_torch as rt
@@ -2923,17 +2632,18 @@ def device_flow_child() -> int:
         from rdst_tpu_torch import config
         from rdst_tpu_torch.native import host
 
+        fc = flow_cases()
         total = {name: 0 for name in KERNEL_INFO}
         t0 = time.perf_counter()
-        for name in DEVICE_FLOW_CASES:
-            _, counts, line = flow_case(rt, config, host, _build.KERNELS, name)
+        for name in fc.DEVICE_FLOW_CASES:
+            _, counts, line = fc.flow_case(rt, config, host, _build.KERNELS, name)
             print(line)
             for k, c in counts.items():
                 total[k] += c
         # recorded_child reads the counts after run(): the phase's total
         for k, c in total.items():
             _build.KERNELS[k].launches = c
-        print(f"device flow: {len(DEVICE_FLOW_CASES)} cases in "
+        print(f"device flow: {len(fc.DEVICE_FLOW_CASES)} cases in "
               f"{time.perf_counter() - t0:.1f} s, launches {total}")
     return recorded_child("device flow", run, every_length=True)
 
@@ -2945,9 +2655,9 @@ def device_flow_phase(launches):
     t0 = time.perf_counter()
     out, _ = _entry_child(["--device-flow"], "device flow", _SORTS, launches)
     done = [line for line in out if line.startswith("case ")]
-    if len(done) != len(DEVICE_FLOW_CASES):
-        raise AssertionError(f"device flow: {len(done)} cases of "
-                             f"{len(DEVICE_FLOW_CASES)} printed")
+    cases = flow_cases().DEVICE_FLOW_CASES
+    if len(done) != len(cases):
+        raise AssertionError(f"device flow: {len(done)} cases of {len(cases)} printed")
     print(f"device-flow phase: {len(done)} cases exited 0 on the card in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -3385,7 +3095,7 @@ def main() -> int:
     table_paths(torch, par, dev, gen, drive, planes_of, check)
     cards_phase(torch, P, par, rd, dev, gen, planes_u32, planes_of, drive, check)
     host_runtime(rng)
-    crossover(rt, config, _build, rng, launches)
+    numpy_calls(rt, config, _build, rng, launches)
     trace_phase(launches)
     multiprocess_phase(launches)
     harness_phase(launches)
@@ -3393,10 +3103,6 @@ def main() -> int:
     acceptance_phase(launches)
     device_flow_phase(launches)
     print(f"launches on the paths: {launches}")
-    backs = _build.COPY_BACKS
-    print(f"numpy copy-backs of this process: {backs}, "
-          f"{backs['recycled'] / (backs['recycled'] + backs['pinned']):.1%} into "
-          "recycled page-locked blocks")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 

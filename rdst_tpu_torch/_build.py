@@ -29,8 +29,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "COPY_BACKS", "host_blocks_pinned", "library",
-           "stream_of", "check_cuda_planes", "sm_count"]
+__all__ = ["Kernel", "KERNELS", "library", "stream_of", "check_cuda_planes", "sm_count"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "rdst_tpu_torch"
@@ -46,18 +45,6 @@ build_seconds: float | None = None
 
 #: name -> Kernel, for callers that report every kernel (chip_smoke.py).
 KERNELS: dict[str, "Kernel"] = {}
-
-#: Copies of a CUDA answer to numpy (``keys._host_copy``) by the page-locked
-#: block they landed in: one an earlier answer freed, or one newly pinned.
-COPY_BACKS = {"recycled": 0, "pinned": 0}
-
-
-def host_blocks_pinned() -> int:
-    """Blocks torch's caching host allocator has pinned in this process so
-    far, from its own statistics (which read as empty until torch's CUDA
-    state is set up, and pinning alone does not set it up)."""
-    torch.cuda.init()
-    return torch.cuda.host_memory_stats_as_nested_dict()["num_host_alloc"]
 
 
 def _nvcc() -> str:

@@ -32,7 +32,6 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from rdst_tpu_torch import _build
 from rdst_tpu_torch import _planes as P
 from rdst_tpu_torch.utils.trace import span, traced
 
@@ -332,16 +331,11 @@ def _host_copy(x: torch.Tensor) -> np.ndarray:
     """``x`` as numpy: the ``rdst.sync.to_numpy`` span.  A CUDA tensor is
     copied into page-locked memory from torch's caching host allocator,
     which hands a block out again only after the array that held it is
-    freed, so no later call writes into an answer a caller holds.  Each
-    such copy counts in ``_build.COPY_BACKS`` by whether its block was
-    recycled or newly pinned."""
+    freed, so no later call writes into an answer a caller holds."""
     with span("sync.to_numpy"):
         if x.device.type != "cuda":
             return x.cpu().numpy()
-        pinned = _build.host_blocks_pinned()
         out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        grew = _build.host_blocks_pinned() != pinned
-        _build.COPY_BACKS["pinned" if grew else "recycled"] += 1
         out.copy_(x)
         return out.numpy()
 

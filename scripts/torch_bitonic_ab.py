@@ -30,14 +30,15 @@ of the parent commit, in a directory that .gitignore lists).  Two parts:
            and arrivals).  B6 is timed as a wrapper and as its launches
            alone, at the sizes the stable 2^28 shuffle sends (recorded from
            one run of it), with one and three planes, and at even aligned
-           sizes.  Bound: bytes read once and written once at 3.35 TB/s.
+           sizes.  Bound: bytes read once and written once at the HBM rate
+           of ``benchmark/peaks.json`` (3.35 TB/s).
   sorts    each tree in turn, parent, this, this, parent, the scripts
            ``--stages`` names: ``scripts/torch_shuffle_stages.py`` (the
-           stable 2^28 shuffle over 8
-           shards: warm time and stage split, and the overlapped run's B4/B5
-           time) and ``scripts/torch_regions_stages.py`` (the 2^30 Regions
-           sort: chunk sorts, each merge's B4/B5 launches and time, copies),
-           both this tree's scripts run on DIR's package with ``--root``;
+           stable 2^28 shuffle over 8 shards, sequential and overlapped)
+           and ``scripts/torch_regions_stages.py`` (the 2^30 Regions sort),
+           each with its warm time and its split by the port's spans and
+           kernels, both this tree's scripts run on DIR's package with
+           ``--root``;
            with ``--sorter`` also ``Sorter.run`` on 2^25 uniform u64 keys
            already on the card (device time under torch.profiler, B2 and B3
            totals) and on sorted 2^25 u64 keys (keys whose every byte level
@@ -56,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import os
 import statistics
 import subprocess
@@ -63,7 +65,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-HBM = 3.35e12  # bytes/s, NVIDIA H100 SXM data sheet
+HBM = json.loads((ROOT / "benchmark" / "peaks.json").read_text())["hbm_bytes_per_s"]
 SEED = 20261016
 PAD = 0xFFFFFFFF
 
@@ -504,8 +506,7 @@ def sorts(parent: Path, reps: int, sorter: bool, stages: set[str]) -> None:
             subprocess.run([sys.executable, str(Path(__file__).resolve()),
                             "--sorter-run", "--reps", str(reps)], cwd=tree, env=env,
                            check=True)
-    for script, keep in (("torch_shuffle_stages.py", ("warm", "overlapped", "profiled")),
-                         ("torch_regions_stages.py", ("call", "  ", "split"))):
+    for script in ("torch_shuffle_stages.py", "torch_regions_stages.py"):
         if script.split("_")[1] not in stages:
             continue
         for tree in (parent, ROOT, ROOT, parent):
@@ -514,10 +515,7 @@ def sorts(parent: Path, reps: int, sorter: bool, stages: set[str]) -> None:
                 cwd=tree, capture_output=True, text=True)
             if res.returncode:
                 raise RuntimeError(f"{script} [{tree}] failed:\n{res.stderr[-4000:]}")
-            lines = [ln for ln in res.stdout.splitlines() if ln.startswith(keep)
-                     or "tail_kernel" in ln or "span_kernel" in ln
-                     or "merge_stage_kernel" in ln]
-            print(f"{script} [{tree.name}]:\n  " + "\n  ".join(lines))
+            print(f"{script} [{tree.name}]:\n{res.stdout}")
 
 
 def main() -> int:

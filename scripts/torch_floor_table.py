@@ -16,7 +16,7 @@ element:
   gather of each payload plane by its indices, the keys unpacked again;
 * ``bound``     -- the card's least time for the work: every operand plane,
   and the index plane a stable fused sort carries, read once and written
-  once over the HBM rate (3.35 TB/s); HBM bounds it;
+  once over the HBM rate of ``benchmark/peaks.json`` (3.35 TB/s); HBM bounds it;
 * ``executor floor`` -- the trips through memory the fused plan makes (its
   B2 and B3 launches, its phase-0 row sorts and the piece path's merges,
   counted on one call), each reading and writing the planes it was given,
@@ -33,6 +33,7 @@ bitonic stage count per element, without its TPU cost per stage.
     python scripts/torch_floor_table.py --device cpu --iters 1   # SIZES cut down
 """
 import argparse
+import json
 import os
 import sys
 
@@ -50,7 +51,6 @@ from rdst_tpu_torch.sorter import Sorter  # noqa: E402
 from scripts import torch_bench_suite as tbs  # noqa: E402
 from scripts.torch_timings import device_name  # noqa: E402
 
-HBM = 3.35e12  # bytes/s, NVIDIA H100 SXM
 _I64_MIN = -(1 << 63)
 
 #: Rows of the shapes (floor_table.py's sizes).
@@ -209,6 +209,12 @@ def achieved(label, planes, n_keys, stable, iters):
     return t
 
 
+def hbm_bytes_per_s() -> float:
+    """The card's HBM rate, the benchmark's figure (``benchmark/peaks.json``)."""
+    with open(os.path.join(ROOT, "benchmark", "peaks.json")) as f:
+        return json.load(f)["hbm_bytes_per_s"]
+
+
 def row(label, planes, n_pay, stable, iters):
     """One row's columns in ns per element, and its trips."""
     n = int(planes[0].shape[0])
@@ -221,8 +227,9 @@ def row(label, planes, n_pay, stable, iters):
         _check(label, column, last_in, out, k, stable)
         cols[column] = t
     trips = executor_trips(planes, k, stable)
-    cols["bound"] = bound_bytes(planes, stable) / HBM
-    cols["executor floor"] = sum(b for _, b in trips.values()) / HBM
+    hbm = hbm_bytes_per_s()
+    cols["bound"] = bound_bytes(planes, stable) / hbm
+    cols["executor floor"] = sum(b for _, b in trips.values()) / hbm
     ns = {c: t * 1e9 / n for c, t in cols.items()}
     return ns, trips
 

@@ -33,12 +33,13 @@ Times: CUDA events around one launch (the host's enqueue included, as a
 caller meets it), median of REPS after a warm-up; for the variants also
 the mean of 20 launches back to back (the device's time per launch) and
 2^10 keys (the fixed cost of a launch).  Bound: the planes read once and
-the buffer written once at 3.35 TB/s.
+the buffer written once at the HBM rate of ``benchmark/peaks.json`` (3.35 TB/s).
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import statistics
 import subprocess
 import sys
@@ -46,7 +47,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "build" / "histogram_split"
-HBM = 3.35e12  # bytes/s, NVIDIA H100 SXM data sheet
+HBM = json.loads((ROOT / "benchmark" / "peaks.json").read_text())["hbm_bytes_per_s"]
 SEED = 20261016
 
 # The first port's B1 (one key per thread, runtime level range), with STAGE

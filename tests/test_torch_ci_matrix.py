@@ -2,14 +2,14 @@
 single-tile regression, determinism and payload configurations, through
 the port against the JAX package on the CPU.
 
-Each case is one entry of ``chip_smoke.DEVICE_FLOW_CASES`` (the card's
-device-flow phase runs it at the same size on the H100) and is held by
+Each case is one entry of ``DEVICE_FLOW_CASES`` (``tests/flow_cases.py``;
+the card's device-flow phase runs it at the same size on the H100) and is held by
 ``tests/test_torch_device_flow.py::held``: the port through
-``chip_smoke.flow_case`` with ``device="cpu"`` (plain versions), the JAX
-package through ``chip_smoke.flow_runs``, keys bit-equal to each other and
+``flow_cases.flow_case`` with ``device="cpu"`` (plain versions), the JAX
+package through ``flow_cases.flow_runs``, keys bit-equal to each other and
 to the numpy oracle, stable payloads bit-equal, unstable payloads the same
 (key, payload) multiset, and both ``(level) PLAN:`` traces equal to
-``chip_smoke.DEVICE_FLOW_TRACES``.  Both packages run with
+``flow_cases.DEVICE_FLOW_TRACES``.  Both packages run with
 ``config.host_sort_max = 0``, the port's default: every case takes the
 device flow, where the JAX test's small sizes took its host path under
 ``conftest.py``'s 2048 (the port's host path is held against the JAX
@@ -46,7 +46,7 @@ flag (64-bit keys with x64 off), which has no meaning in torch, whose
 import numpy as np
 import pytest
 
-import chip_smoke as cs
+import flow_cases as fc
 import rdst_tpu
 from rdst_tpu import config as jconfig
 from rdst_tpu.native import host as jhost
@@ -54,7 +54,7 @@ from rdst_tpu_torch.native import host as thost
 from tests.test_torch_device_flow import held
 
 
-@pytest.mark.parametrize("dtype", cs.FLOW_TYPES)
+@pytest.mark.parametrize("dtype", fc.FLOW_TYPES)
 def test_single_program_build(dtype):
     (_, _, trace), = held(f"ci serial {dtype}")
     assert ("LrLsb" if dtype.startswith("float") else "Lsb") in trace
@@ -65,31 +65,31 @@ def test_single_tile_regression(n):
     held(f"ci one tile {n}")
 
 
-@pytest.mark.parametrize("algo", cs.DET_ALGOS)
+@pytest.mark.parametrize("algo", fc.DET_ALGOS)
 def test_determinism(algo):
     runs = held(f"ci determinism {algo} 100000")
-    assert len(runs) == cs.DET_RUNS == 3
+    assert len(runs) == fc.DET_RUNS == 3
     for k, p, _ in runs[1:]:
         np.testing.assert_array_equal(k, runs[0][0])
         np.testing.assert_array_equal(p, runs[0][1])
 
 
-@pytest.mark.parametrize("algo", cs.DET_ALGOS)
+@pytest.mark.parametrize("algo", fc.DET_ALGOS)
 def test_determinism_traces_above_fused_min_elems(algo):
     """The card's 2^22 + 3 determinism cases: one JAX run a plan gives the
     table's trace and the numpy oracle's result (the port's plain
     versions take ~30 s a run at this size on the CPU; the card runs it)."""
     name = f"ci determinism {algo} {(1 << 22) + 3}"
-    x, v = cs.flow_input(name)
-    (k, p, trace), = cs.flow_runs(rdst_tpu, jconfig, name, x, v, runs=1)
-    assert trace == cs.DEVICE_FLOW_TRACES[name]
-    cs.flow_check(name, x, v, k, p)
+    x, v = fc.flow_input(name)
+    (k, p, trace), = fc.flow_runs(rdst_tpu, jconfig, name, x, v, runs=1)
+    assert trace == fc.DEVICE_FLOW_TRACES[name]
+    fc.flow_check(name, x, v, k, p)
 
 
 @pytest.mark.parametrize("stable", [True, False], ids=["stable", "unstable"])
 def test_f64_payload_stable_and_unstable(stable):
     name = f"ci f64 payload {'stable' if stable else 'unstable'}"
-    x, v = cs.flow_input(name)
+    x, v = fc.flow_input(name)
     assert x.dtype == np.float64 and v.dtype == np.uint64
     assert np.isnan(x[:2]).all() and np.isinf(x[2:4]).all() and np.signbit(x[5])
     held(name)
@@ -98,7 +98,7 @@ def test_f64_payload_stable_and_unstable(stable):
 def test_u64_payload_parity_with_host_oracle():
     name = "ci u64 payload host"
     (k, p, _), = held(name)  # flow_case holds it to the port's host runtime
-    x, v = cs.flow_input(name)
+    x, v = fc.flow_input(name)
     assert len(np.unique(x)) < x.size  # duplicates guaranteed
     hk, hv = thost.host_radix_sort(x.copy(), v.copy())
     jk, jv = jhost.host_radix_sort(x.copy(), v.copy())

@@ -2,16 +2,16 @@
 the device dispatcher (histogram -> tuner -> plan) with
 ``config.host_sort_max`` pinned to 0, against the JAX package on the CPU.
 
-Each case is one entry of ``chip_smoke.DEVICE_FLOW_CASES``, which the
-card's device-flow phase runs at the same sizes on the H100.  The port's
-side runs through ``chip_smoke.flow_case`` with ``device="cpu"``, the code
+Each case is one entry of ``DEVICE_FLOW_CASES`` (``tests/flow_cases.py``),
+which the card's device-flow phase runs at the same sizes on the H100.  The port's
+side runs through ``flow_cases.flow_case`` with ``device="cpu"``, the code
 the card runs, so its kernel wrappers take their plain versions and launch
-nothing; the JAX side runs the same call through ``chip_smoke.flow_runs``
+nothing; the JAX side runs the same call through ``flow_cases.flow_runs``
 on the same numpy input.  Held exactly: keys bit-equal to the JAX package
-and to the numpy oracle (``chip_smoke.flow_oracle``: floats in their
+and to the numpy oracle (``flow_cases.flow_oracle``: floats in their
 total order), stable payloads bit-equal, unstable payloads the same (key,
 payload) multiset as the oracle's, and both packages' ``(level) PLAN:``
-traces the identical string, equal to ``chip_smoke.DEVICE_FLOW_TRACES``.
+traces the identical string, equal to ``flow_cases.DEVICE_FLOW_TRACES``.
 That table is what the card's picks must equal, so these tests bind the
 card's picks to the reference's.
 
@@ -43,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke as cs
+import flow_cases as fc
 import rdst_tpu
 import rdst_tpu_torch
 from rdst_tpu import config as jconfig
@@ -66,35 +66,35 @@ def _device_flow(monkeypatch):
 
 
 def held(name, keys=None):
-    """Run case ``name`` through the port (``chip_smoke.flow_case`` on the
+    """Run case ``name`` through the port (``flow_cases.flow_case`` on the
     CPU) and the JAX package, and hold both to each other, to the numpy
     oracle and to the trace table.  ``keys``: the input as the caller made
     it, which must be the case's.  Returns the port's runs."""
-    x, v = cs.flow_input(name)
+    x, v = fc.flow_input(name)
     if keys is not None:
         np.testing.assert_array_equal(keys, x)
-    runs, counts, line = cs.flow_case(rdst_tpu_torch, tconfig, thost, _build.KERNELS,
+    runs, counts, line = fc.flow_case(rdst_tpu_torch, tconfig, thost, _build.KERNELS,
                                       name, device="cpu")
-    assert counts == {k: 0 for k in cs.KERNEL_INFO}  # plain versions on the CPU
+    assert counts == {k: 0 for k in _build.KERNELS}  # plain versions on the CPU
     assert line.startswith(f"case {name}: ")
-    want = cs.flow_runs(rdst_tpu, jconfig, name, x, v)
+    want = fc.flow_runs(rdst_tpu, jconfig, name, x, v)
     assert len(runs) == len(want)
     for (gk, gp, gt), (wk, wp, wt) in zip(runs, want):
-        assert gt == wt == cs.DEVICE_FLOW_TRACES[name]
+        assert gt == wt == fc.DEVICE_FLOW_TRACES[name]
         assert gk.dtype == wk.dtype
-        np.testing.assert_array_equal(cs._bits(gk), cs._bits(wk))
-        if cs.DEVICE_FLOW_CASES[name][0] == "kv unstable":
+        np.testing.assert_array_equal(fc._bits(gk), fc._bits(wk))
+        if fc.DEVICE_FLOW_CASES[name][0] == "kv unstable":
             # flow_case held the port's pairs to the oracle's multiset
-            cs.flow_check(name, x, v, wk, wp)
+            fc.flow_check(name, x, v, wk, wp)
         elif v is not None:
             assert gp.dtype == wp.dtype
             np.testing.assert_array_equal(gp, wp)
     return runs
 
 
-@pytest.mark.parametrize("dtype", cs.FLOW_TYPES)
+@pytest.mark.parametrize("dtype", fc.FLOW_TYPES)
 def test_device_default_flow_all_dtypes(dtype):
-    x, _ = cs.flow_input(f"flow {dtype}")
+    x, _ = fc.flow_input(f"flow {dtype}")
     if dtype.startswith("float"):
         assert np.isnan(x[:2]).all() and np.signbit(x[1]) and np.isinf(x[2:4]).all()
     held(f"flow {dtype}")
@@ -138,24 +138,24 @@ def test_scanning_ladder_and_trace():
     Recombinating), and the card's trace table says so."""
     _assert_pick(50_000_001, False, "SCANNING")
     _assert_pick(50_000_000, False, "RECOMBINATING")
-    assert cs.DEVICE_FLOW_CASES[cs.SCANNING][1] == ("u32", 50_000_001, None)
-    assert cs.DEVICE_FLOW_TRACES[cs.SCANNING] == "(3) PLAN: Scanning len=50000001"
+    assert fc.DEVICE_FLOW_CASES[fc.SCANNING][1] == ("u32", 50_000_001, None)
+    assert fc.DEVICE_FLOW_TRACES[fc.SCANNING] == "(3) PLAN: Scanning len=50000001"
 
 
 @pytest.mark.slow
 def test_scanning_natural_50m():
-    _natural(cs.SCANNING, 50_000_001, False, "SCANNING")
+    _natural(fc.SCANNING, 50_000_001, False, "SCANNING")
 
 
 def test_trace_table_covers_every_case():
     """One trace for every case, each one pick of its own length, and a
     pinned Algorithm's pick is that Algorithm."""
-    assert list(cs.DEVICE_FLOW_TRACES) == list(cs.DEVICE_FLOW_CASES)
-    for name, (call, (kind, *a), _) in cs.DEVICE_FLOW_CASES.items():
+    assert list(fc.DEVICE_FLOW_TRACES) == list(fc.DEVICE_FLOW_CASES)
+    for name, (call, (kind, *a), _) in fc.DEVICE_FLOW_CASES.items():
         n = a[1] if kind in ("typed", "below", "bimodal") else a[0]
-        m = re.fullmatch(r"\(\d\) PLAN: (\w+) len=(\d+)", cs.DEVICE_FLOW_TRACES[name])
+        m = re.fullmatch(r"\(\d\) PLAN: (\w+) len=(\d+)", fc.DEVICE_FLOW_TRACES[name])
         assert m and int(m.group(2)) == n, name
-        if call in cs.DET_ALGOS:
+        if call in fc.DET_ALGOS:
             assert m.group(1) == ttuner.Algorithm[call].value, name
 
 
@@ -169,7 +169,7 @@ def test_flow_oracle_is_the_normalized_order(dt):
     x[100:200] = x[:100]  # ties
     words = [np.asarray(w) for w in rdst_tpu.keys.normalize(x).words]
     want = np.lexsort((np.arange(x.size), *words[::-1]))
-    np.testing.assert_array_equal(cs.flow_oracle(x), want)
+    np.testing.assert_array_equal(fc.flow_oracle(x), want)
 
 
 def test_flow_check_rejects_wrong_results():
@@ -177,25 +177,25 @@ def test_flow_check_rejects_wrong_results():
     and a lost payload; an unstable payload may permute among equal
     keys."""
     name, uname = "ci f64 payload stable", "ci f64 payload unstable"
-    x, v = cs.flow_input(name)
+    x, v = fc.flow_input(name)
     x[1000:2000] = x[10:1010]  # ties
-    order = cs.flow_oracle(x)
+    order = fc.flow_oracle(x)
     k, p = x[order], v[order]
-    cs.flow_check(name, x, v, k, p)
+    fc.flow_check(name, x, v, k, p)
     bad = k.copy()
     bad[-1] = 0.5
     with pytest.raises(AssertionError, match="keys differ"):
-        cs.flow_check(name, x, v, bad, p)
-    ties = np.flatnonzero(cs._bits(k)[1:] == cs._bits(k)[:-1])
+        fc.flow_check(name, x, v, bad, p)
+    ties = np.flatnonzero(fc._bits(k)[1:] == fc._bits(k)[:-1])
     swapped = p.copy()
     swapped[[ties[0], ties[0] + 1]] = swapped[[ties[0] + 1, ties[0]]]
     with pytest.raises(AssertionError, match="payload differs"):
-        cs.flow_check(name, x, v, k, swapped)
-    cs.flow_check(uname, x, v, k, swapped)
+        fc.flow_check(name, x, v, k, swapped)
+    fc.flow_check(uname, x, v, k, swapped)
     lost = swapped.copy()
     lost[0] = lost[1]
     with pytest.raises(AssertionError, match="payload differs"):
-        cs.flow_check(uname, x, v, k, lost)
+        fc.flow_check(uname, x, v, k, lost)
 
 
 def test_device_flow_child_needs_the_card():

@@ -462,8 +462,10 @@ _CHILDREN = ("tests/test_torch_distributed.py", "tests/test_torch_dtable_distrib
     "scripts/torch_bench_single_algo.py", "scripts/torch_timings.py",
     "scripts/torch_capacity_study.py", "scripts/torch_bench_mesh.py",
     "scripts/torch_suite_steps.py", "scripts/torch_acceptance.py",
-    "scripts/torch_floor_table.py", "fixtures/torch_consumer.py", "torch_bench.py",
-    "torch_graft_entry.py", *_CHILDREN])
+    "scripts/torch_floor_table.py", "scripts/torch_span_split.py",
+    "scripts/torch_shuffle_stages.py", "scripts/torch_regions_stages.py",
+    "scripts/torch_table_stages.py", "tests/flow_cases.py", "fixtures/torch_consumer.py",
+    "torch_bench.py", "torch_graft_entry.py", *_CHILDREN])
 def test_port_imports_no_jax(where):
     """No module of the port, not ``chip_smoke.py``, none of the port's
     harnesses, its consumer fixture or its root entry points imports JAX,
@@ -483,6 +485,19 @@ def test_port_imports_no_jax(where):
         hits = _IMPORT.findall(text) + _JAX_SCRIPT.findall(text)
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
 
+
+
+@pytest.mark.parametrize("where", ["tests", "scripts"])
+def test_no_test_or_script_imports_chip_smoke(where):
+    """``chip_smoke.py`` drives the card and is no library: the tests and
+    scripts share their case tables through modules of their own
+    (``tests/flow_cases.py``), so no slip in the card script can stop a
+    CPU test from importing.  Running it as a child or reading its text
+    stays."""
+    imports = re.compile(r"^\s*(?:import|from)\s+chip_smoke\b", re.M)
+    hits = [str(f.relative_to(ROOT)) for f in sorted((ROOT / where).rglob("*.py"))
+            if imports.search(f.read_text())]
+    assert not hits
 
 def test_entry_points_default_to_the_card():
     """Every public function or class of the port that takes ``device``
