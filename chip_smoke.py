@@ -14,19 +14,23 @@ Phases, each printing its own lines:
      the piece path's 10M x 1 word (with ``torch.bincount`` timed beside its
      one-level use B1', a yardstick the port never calls), B2/B3, and the
      merge kernels B4/B5 at the chunked path's merge shape (2^25 x 4
-     planes) and others, B5 in place too;
+     planes) and others, B5 in place too, B7 at the piece path's merges,
+     and B8 at the passes of the 50M u64 sort and of narrower rows;
   3. the paths end to end through the public API, each driven with every
      launch count set to 0 just before it and read just after, each sorted
      bit-equal to numpy or to torch.sort, each printing its plan trace, time
      and rate:
        - 2^25 uniform u64 keys, a 10,000,000-pair stable u32 key-value sort
-         (the piece path) and 2^22 f64 keys with +-NaN, +-0 and +-Inf;
+         and 2^22 f64 keys with +-NaN, +-0 and +-Inf (all on B8's radix
+         passes);
        - ``Sorter.run`` on sorted 2^25 u64 keys on the card: keys that take
          the AlreadySorted short circuit (B1 alone) and uniform keys sorted;
        - the low-memory Regions path at the real gate: 2^30 int64 keys with
          int32 values on the card (12 GiB of planes, above the 10 GiB
          ``low_mem_threshold_bytes``), with its peak device memory, after
-         B1 against its plain version on the keys' 2^30 x 2 planes;
+         B1 against its plain version on the keys' 2^30 x 2 planes, and
+         then B8 against its plain version at every shape its chunk sorts
+         gave it;
        - 20M u64 keys with the low-memory tuner and the gate forced open;
        - a presorted merge of 2^25 u64 keys whose first 15/16 are sorted;
        - the bucketed MtOop plan on 16M u32 key-value pairs, uniform and
@@ -114,8 +118,8 @@ Phases, each printing its own lines:
          second, peak device memory, launches, the transport and, over two
          ranks, a synchronized split; each rank then holds B6 at every
          (senders, receivers, planes, capacity) shape its counted calls
-         launched, and B2-B5 at every shape they launched, against their
-         plain versions; and two NCCL ranks on the one card, tried
+         launched, and B2-B5 and B8 at every shape they launched, against
+         their plain versions; and two NCCL ranks on the one card, tried
          once, printing what NCCL answers inside its first collective (a
          finding, not a check; any failure before it fails the phase);
        - every ``examples/torch_*.py`` with ``--device cuda``, the
@@ -129,8 +133,8 @@ Phases, each printing its own lines:
          ``torch_bench_mesh.py`` (2^20 rows a shard) and
          ``fixtures/torch_consumer.py``; each child records the shape of
          every kernel launch its script makes and afterwards holds B1 (each
-         (words, levels) group's shortest and longest length), B2-B5 (every
-         shape) and B6 (every shape, on a copy of its inputs) against their
+         (words, levels) group's shortest and longest length), B2-B5 and
+         B8 (every shape) and B6 (every shape, on a copy of its inputs) against their
          plain versions; their launches count on the paths;
        - the root entry points, each in a fresh child, one at a time (the
          2^30 sizes hold tens of GiB): ``torch_bench.py`` (``BENCH_RUNS``:
@@ -174,8 +178,8 @@ Phases, each printing its own lines:
          ``config.host_sort_max = 0``, each with its launches counted from
          0, its PLAN trace equal to ``DEVICE_FLOW_TRACES`` (which the CPU
          tests hold to the JAX package's) and its result bit-equal to its
-         numpy oracle; the child holds B1 at every length and B2-B5 at
-         every shape the cases launched against their plain versions;
+         numpy oracle; the child holds B1 at every length and B2-B5 and B8
+         at every shape the cases launched against their plain versions;
   4. the launch counts, then one JSON line of the kernels, then the
      result line.  Its times are those of each kernel's most-launched shape
      on the shuffle (B2-B5), of B6 at the stable run's exchange, and of B1
@@ -238,7 +242,21 @@ KERNEL_INFO = {
         "rdst_tpu_torch/csrc/exchange.cu", "rdst_tpu/parallel/remote_dma.py:225"),
     "piece_merge": (  # no Pallas kernel: the XLA slice stages of _merge_asc_desc
         "rdst_tpu_torch/csrc/piece_merge.cu", "rdst_tpu/ops/pallas_sort.py:702"),
+    "radix_pass": (  # no Pallas kernel: the networks' trips on rows of <= 64 key bits
+        "rdst_tpu_torch/csrc/radix_pass.cu", "rdst_tpu/ops/pallas_sort.py (none)"),
 }
+#: A path's sorts run the fused executor: its radix passes (B8) on rows of at
+#: most 8 key bytes and one payload plane, its network (B2/B3) on wider rows.
+#: In a list of kernels a path must launch, a tuple is met by any one of its
+#: kernels.
+EXECUTOR = ("radix_pass", "bitonic_tail")
+
+
+def not_launched(counts, need) -> list:
+    """The entries of ``need`` (a kernel, or a tuple of which any one will
+    do) that ``counts`` shows no launch of."""
+    return [k for k in need
+            if not any(counts[x] > 0 for x in ((k,) if isinstance(k, str) else k))]
 GiB = 1 << 30
 WARM_CALLS = 3  # timed calls of each table path after its first
 
@@ -321,6 +339,44 @@ def piece_merge_checks(torch, P, fs, planes_of, check):
         del a, b
 
 
+def radix_case(torch, rs, H, planes, n_keys, byte):
+    """(kernel, plain) of one B8 pass on ``planes``: the level's counts come
+    from one B1 launch outside the timed call, and the launch zeroes its
+    scratch (one memset) and runs B8."""
+    counts = H.histogram_cuda(rs.hist_words(planes[:n_keys]), 1, byte)
+    scratch = rs.pass_scratch(int(planes[0].shape[0]), planes[0].device)
+    outs = [torch.empty_like(p) for p in planes]
+    return (lambda: rs.radix_pass(planes, outs, n_keys, byte, counts, scratch),
+            lambda: rs.radix_pass_plain(planes, n_keys, byte))
+
+
+def radix_checks(torch, P, rs, H, planes_of, check):
+    """B8 against its plain version at the main path's shapes: passes of the
+    50M u64 sort (two u32 key planes: the lowest byte, the kernels line's
+    shape, and the top byte), of ``sort_key_value``'s 10M u32 key and u32
+    payload, of narrow planes (u8+u16+u32 keys, u16 payload), and of u64
+    keys with a u32 payload at the distributed sort's local sorts (2^25
+    rows) and the low-memory Regions sort's chunk sorts (2^28 rows), at the
+    lowest and the top byte.  Bound: every plane read once and written
+    once."""
+    u8, u16, u32 = torch.uint8, torch.uint16, torch.uint32
+    for n, dtypes, n_keys, byte in [(50_000_000, (u32, u32), 2, 0),
+                                    (50_000_000, (u32, u32), 2, 7),
+                                    (10_000_000, (u32, u32), 1, 3),
+                                    (1 << 24, (u8, u16, u32, u16), 3, 6),
+                                    (1 << 25, (u32, u32, u32), 2, 0),
+                                    (1 << 25, (u32, u32, u32), 2, 7),
+                                    (1 << 28, (u32, u32, u32), 2, 0),
+                                    (1 << 28, (u32, u32, u32), 2, 7)]:
+        planes = planes_of(n, dtypes)
+        kernel, plain = radix_case(torch, rs, H, planes, n_keys, byte)
+        widths = "+".join(str(d).split(".")[-1] for d in dtypes)
+        check("radix_pass", f"{n} x {widths}, {n_keys} keys, byte {byte}", kernel,
+              plain, main_shape=n == 50_000_000 and byte == 0)
+        del planes, kernel, plain
+        torch.cuda.empty_cache()
+
+
 def plain_route(fm, fn):
     """Run ``fn`` with the merge wrappers routed to their plain versions:
     the same stage schedule on the same card, for a composite's check."""
@@ -337,25 +393,37 @@ def plain_route(fm, fn):
 
 @contextlib.contextmanager
 def record_shapes(fs, fm, seen):
-    """While a path runs, count the launches of B2-B5 by their arguments:
-    ``seen[kernel][(dtypes, n, *args)]``.  Only dtypes and integers are
-    kept, no tensors, so the path's time is unchanged."""
+    """While a path runs, count the launches of B2-B5 and B8 by their
+    arguments: ``seen[kernel][(dtypes, n, *args)]`` (B8's args: its key
+    planes and key byte).  Only dtypes and integers are kept, no tensors,
+    so the path's time is unchanged."""
+    from rdst_tpu_torch.ops import radix_sort as rs
+
     targets = [("bitonic_tail", fs, "tail_cuda"), ("bitonic_span", fs, "span_cuda"),
                ("merge_stage", fm, "merge_stage_cuda"),
-               ("merge_tail", fm, "merge_tail_cuda")]
+               ("merge_tail", fm, "merge_tail_cuda"), ("radix_pass", rs, "radix_pass")]
     saved = [getattr(mod, attr) for _, mod, attr in targets]
+
+    def note(name, sig):
+        book = seen.setdefault(name, {})
+        book[sig] = book.get(sig, 0) + 1
 
     def wrap(name, real):
         def fn(planes, n, *args, **kw):
-            sig = (tuple(p.dtype for p in planes), n) + tuple(
-                tuple(a) if isinstance(a, list) else a for a in args)
-            book = seen.setdefault(name, {})
-            book[sig] = book.get(sig, 0) + 1
+            note(name, (tuple(p.dtype for p in planes), n) + tuple(
+                tuple(a) if isinstance(a, list) else a for a in args))
             return real(planes, n, *args, **kw)
         return fn
 
+    def wrap_radix(real):
+        def fn(src, dst, n_keys, byte, *args):
+            note("radix_pass", (tuple(p.dtype for p in src), int(src[0].shape[0]),
+                                n_keys, byte))
+            return real(src, dst, n_keys, byte, *args)
+        return fn
+
     for (name, mod, attr), real in zip(targets, saved):
-        setattr(mod, attr, wrap(name, real))
+        setattr(mod, attr, wrap_radix(real) if name == "radix_pass" else wrap(name, real))
     try:
         yield seen
     finally:
@@ -408,12 +476,28 @@ def check_recorded(fs, fm, seen, planes_of, check, main=True):
     most-launched shape gives the kernels line its times.  The kernel runs
     at the recorded shape; above ``LEAN_BYTES`` of planes, where the
     launch's pairs and directions lie within aligned chunks of
-    ``LEAN_CHUNK``, the plain version runs chunk by chunk."""
+    ``LEAN_CHUNK``, the plain version runs chunk by chunk.  B8 is held at
+    every recorded (dtypes, length, key planes, byte), on B1's counts of
+    the same planes, and leaves the kernels line to :func:`radix_checks`."""
+    import torch
+
+    from rdst_tpu_torch.ops import histogram as H
+    from rdst_tpu_torch.ops import radix_sort as rs
+
     fns = {"bitonic_tail": (fs.tail_cuda, fs.tail_plain),
            "bitonic_span": (fs.span_cuda, fs.span_plain),
            "merge_stage": (fm.merge_stage_cuda, fm.merge_stage_plain),
            "merge_tail": (fm.merge_tail_cuda, fm.merge_tail_plain)}
     for name, book in seen.items():
+        if name == "radix_pass":  # every recorded shape: its work moves with the byte
+            for (dtypes, n, n_keys, byte), c in sorted(book.items(), key=str):
+                planes = planes_of(n, dtypes)
+                kernel, plain = radix_case(torch, rs, H, planes, n_keys, byte)
+                check(name, f"path shape {n} x "
+                      f"{'+'.join(str(d).split('.')[-1] for d in dtypes)}, {n_keys} keys, "
+                      f"byte {byte}; {c} launches of this shape on the path", kernel, plain)
+                del planes, kernel, plain
+            continue
         groups = {}
         for sig, c in book.items():
             groups.setdefault(sig[:2], []).append((sig, c))
@@ -446,7 +530,8 @@ def check_recorded(fs, fm, seen, planes_of, check, main=True):
 
 def sorter_headline(torch, P, x64, dev):
     """``Sorter.run`` on the 2^25 u64 headline keys already on the card: its
-    kernels' device time under the profiler with the B2 and B3 totals, and
+    kernels' device time under the profiler with the B8, B2 and B3 totals
+    (its keys take the radix passes: B2 and B3 read 0), and
     ``torch.sort`` of the same keys as int64 (sign bit flipped) beside it, a
     yardstick the port never calls.  The sorted words must equal it."""
     from torch.autograd import DeviceType
@@ -462,7 +547,8 @@ def sorter_headline(torch, P, x64, dev):
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         sorter.run(nk)
         torch.cuda.synchronize()
-    tot = {"all": [0.0, 0], "tail_kernel": [0.0, 0], "span_kernel": [0.0, 0]}
+    tot = {"all": [0.0, 0], "radix_pass_kernel": [0.0, 0], "tail_kernel": [0.0, 0],
+           "span_kernel": [0.0, 0]}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.is_user_annotation:
             continue
@@ -478,7 +564,8 @@ def sorter_headline(torch, P, x64, dev):
         raise AssertionError("Sorter.run 2^25 u64 differs from torch.sort")
     sort_ms = cuda_ms(torch, lambda: torch.sort(key))
     print(f"Sorter.run 2^25 u64 on the card: {run_ms:.3f} ms (CUDA events, median "
-          f"of {REPS}); device time over kernels {tot['all'][0]:.3f} ms; B2 "
+          f"of {REPS}); device time over kernels {tot['all'][0]:.3f} ms; B8 "
+          f"{tot['radix_pass_kernel'][0]:.3f} ms in {tot['radix_pass_kernel'][1]} launches, B2 "
           f"{tot['tail_kernel'][0]:.3f} ms in {tot['tail_kernel'][1]} launches, B3 "
           f"{tot['span_kernel'][0]:.3f} ms in {tot['span_kernel'][1]}; bit-exact vs "
           f"torch.sort, whose time on the same keys as int64 is {sort_ms:.3f} ms")
@@ -522,7 +609,7 @@ def distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32,
     """The distributed shuffle on a mesh of 8 shards on the card, 2^25 rows
     each (the JAX package's per-chip headline size), exchanged HBM to HBM
     by B6; B6 against its plain version at the sizes the shuffle sent, and
-    B2-B5 at the shapes the stable and overlapped runs gave them.  Oracles
+    B2-B5 and B8 at the shapes the stable and overlapped runs gave them.  Oracles
     are torch.sort on the card."""
     D = 8
     n28 = D * nl
@@ -606,9 +693,9 @@ def distributed_paths(torch, P, par, rd, fs, fm, dev, gen, planes_u32,
     del ow, op, oc, got, hi, lo, pay
     torch.cuda.empty_cache()
 
-    # B2/B3 at the stable run's local and finish sorts, B4/B5 at the
-    # overlapped run's merges (its sorts have the stable run's shapes)
-    if set(seen_flat) != {"bitonic_tail", "bitonic_span"}:
+    # B8 at the stable run's local sorts, B2/B3 at its finish sorts, B4/B5
+    # at the overlapped run's merges (its sorts have the stable run's shapes)
+    if set(seen_flat) != {"bitonic_tail", "bitonic_span", "radix_pass"}:
         raise AssertionError(f"the stable shuffle ran {sorted(seen_flat)}")
     check_recorded(fs, fm, seen_flat, planes_of, check)
     check_recorded(fs, fm, {k: seen_overlap[k] for k in ("merge_stage", "merge_tail")},
@@ -862,7 +949,7 @@ def table_paths(torch, par, dev, gen, drive, planes_of, check, n_lineitem=1 << 2
     print(f"table phase: TPC-H shape, SF {sf:.2f}: lineitem {n_l} rows "
           f"({li_b / GiB:.2f} GiB), orders {n_o} rows; mesh of {D} shards on the card")
 
-    # the counted calls' B2-B5 launches by their arguments, and each B6
+    # the counted calls' B2-B5 and B8 launches by their arguments, and each B6
     # launch: (path, each sender's plane dtypes and length, offsets, sizes,
     # capacity)
     seen, sent = {}, []
@@ -899,7 +986,7 @@ def table_paths(torch, par, dev, gen, drive, planes_of, check, n_lineitem=1 << 2
         finally:
             rd.remote_dma_exchange_cuda = real_b6
         counts = {k: _build.KERNELS[k].launches for k in KERNEL_INFO}
-        missing = [k for k in need if counts[k] <= 0]
+        missing = not_launched(counts, need)
         if missing:
             raise AssertionError(f"path {label} launched no {missing}")
         if exchanges is not None and counts["remote_exchange"] != exchanges:
@@ -976,7 +1063,7 @@ def table_paths(torch, par, dev, gen, drive, planes_of, check, n_lineitem=1 << 2
             f"(Q18's inner aggregate), partition={part}", n_l,
             lambda: par.distributed_group_aggregate(li, "orderkey", aggs, mesh=mesh,
                                                     partition=part),
-            need=("bitonic_tail", "bitonic_span", "remote_exchange"), exchanges=1)
+            need=(EXECUTOR, "remote_exchange"), exchanges=1)
         if int(n_groups) != keys.numel():
             raise AssertionError(f"{n_groups} groups, want {keys.numel()}")
         order = torch.sort(out["orderkey"]).indices
@@ -1011,7 +1098,7 @@ def table_paths(torch, par, dev, gen, drive, planes_of, check, n_lineitem=1 << 2
     out, counts = run("table: distributed_sort_table orders by totalprice, stable",
                       n_o, lambda: par.distributed_sort_table(
                           od, "totalprice", mesh=mesh, stable=True),
-                      need=("bitonic_tail", "bitonic_span", "remote_exchange"),
+                      need=(EXECUTOR, "remote_exchange"),
                       exchanges=1)
     idx = torch.sort(orders["totalprice"], stable=True).indices
     same("distributed_sort_table", dense(out, counts, list(orders)),
@@ -1063,7 +1150,7 @@ def table_paths(torch, par, dev, gen, drive, planes_of, check, n_lineitem=1 << 2
     x = torch.empty(n, dtype=torch.int64, device=dev).random_(generator=gen)
     xu = x.view(torch.uint64)
     got = run(f"jit_api.sort 2^{n.bit_length() - 1} uniform u64, sync debug mode error", n,
-              lambda: rt.jit_api.sort(xu), need=("bitonic_tail", "bitonic_span"),
+              lambda: rt.jit_api.sort(xu), need=("radix_pass",),
               no_sync=True)
     sign = -(1 << 63)
     ref, order = torch.sort(x ^ sign, stable=True)
@@ -1603,10 +1690,10 @@ def trace_child() -> int:
     """One warm ``Sorter.run`` on 2^25 u64 keys already on the card inside
     ``utils.trace.profile_to``, with CUDA events around it and every launch
     count set to 0 just before it.  The trace's kernel events must name the
-    B1, B2 and B3 kernels (``hist_kernel`` of csrc/histogram.cu,
-    ``tail_kernel`` and ``span_kernel`` of csrc/bitonic.cu), with as many
-    events of each as its launches were counted.  The last line printed is
-    the launch counts, as JSON."""
+    B1 and B8 kernels (``hist_kernel`` of csrc/histogram.cu,
+    ``radix_pass_kernel`` of csrc/radix_pass.cu), with as many events of
+    each as its launches were counted; u64 keys launch no B2 or B3.  The
+    last line printed is the launch counts, as JSON."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1641,10 +1728,11 @@ def trace_child() -> int:
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
     want = {"hist_kernel": counted["multi_level_histogram"],
-            "tail_kernel": counted["bitonic_tail"],
-            "span_kernel": counted["bitonic_span"]}
+            "radix_pass_kernel": counted["radix_pass"]}
     if counted["merge_tail"] or counted["merge_stage"]:
         raise AssertionError(f"Sorter.run merged: {counted}")
+    if counted["bitonic_tail"] or counted["bitonic_span"]:
+        raise AssertionError(f"Sorter.run took the network: {counted}")
     found, total_ms = {}, 0.0
     for e in events:
         total_ms += e["dur"] / 1e3
@@ -1832,7 +1920,7 @@ def dist_child(mode, rank, init) -> int:
                     ("make_mesh(8), overlap_exchange", par.make_mesh(8, **on),
                      dict(overlap_exchange=True))]
     launches = {name: 0 for name in KERNEL_INFO}
-    seen = {}  # B2-B5: the counted calls' launches by shape
+    seen = {}  # B2-B5 and B8: the counted calls' launches by shape
     b6_cases = {}  # B6: (senders, receivers, planes, capacity) -> a copy of its inputs
     shapes = set()  # B6's shapes in the current variant's counted call
     cards_sent = []  # B6's multi-card calls: as cards_calls records them
@@ -1923,7 +2011,7 @@ def dist_child(mode, rank, init) -> int:
     del tables
     torch.cuda.empty_cache()
 
-    # every B6 shape of the counted calls, then every B2-B5 shape
+    # every B6 shape of the counted calls, then every B2-B5 and B8 shape
     for key in sorted(b6_cases):
         _b6_case(torch, rd, b6_cases.pop(key), key, f"rank {rank}")
     torch.cuda.empty_cache()
@@ -2033,7 +2121,7 @@ def dist_table_paths(torch, par, M, sh, rd, fs, fm, dev, world, rank, tables,
     """After the sort variants: the four table operators on ``make_mesh(8)``
     over this process group (on the card ``entries`` of each rank where
     given), each rank passing its own rows.  Each path's counted call
-    records its B2-B5 shapes (``record_shapes``) and B6's (``b6``, and the
+    records its B2-B5 and B8 shapes (``record_shapes``) and B6's (``b6``, and the
     multi-card calls with ``b6_cards`` into ``cards_sent``); its rows (one
     Table an entry, concatenated) and counts must be bit-equal to this
     rank's share of the one-process result and its count to the torch
@@ -2325,13 +2413,13 @@ def _b6_case(torch, rd, rec, key, tag):
 # measurement harnesses at a depth that keeps the phase short (bench_suite
 # and the consumer at full width); timings calls sort_words, which runs no
 # B1.  harness_phase runs every examples/torch_*.py beside them.
-_SORTS = ("multi_level_histogram", "bitonic_tail", "bitonic_span")
+_SORTS = ("multi_level_histogram", EXECUTOR)
 HARNESSES = [
     ("scripts/torch_bench_suite.py", [], _SORTS + ("merge_stage", "merge_tail")),
     ("scripts/torch_bench_single_algo.py", ["--n", str(1 << 22), "--tuners"], _SORTS),
     ("scripts/torch_timings.py", ["--min-exp", "16", "--max-exp", "22",
                                   "--out", "build/chip_smoke_timings.csv"],
-     ("bitonic_tail", "bitonic_span")),
+     (EXECUTOR,)),
     ("scripts/torch_capacity_study.py", ["--n", str(1 << 20)], ("remote_exchange",)),
     ("scripts/torch_bench_mesh.py", [], ("remote_exchange",)),
     ("fixtures/torch_consumer.py", [], ("multi_level_histogram",)),
@@ -2371,7 +2459,7 @@ def harness_phase(launches):
             print(f"harness {script} {' '.join(args)}: exit 0; launches {counted}")
             for name in KERNEL_INFO:
                 launches[name] += counted[name]
-            if any(counted[name] <= 0 for name in need):
+            if not_launched(counted, need):
                 failed.append(f"{script}: did not launch {need}: {counted}")
     finally:
         for p in procs:
@@ -2400,8 +2488,8 @@ def harness_child(argv) -> int:
 
 def recorded_child(tag, run, every_length=False) -> int:
     """Call ``run`` in this fresh process, recording the shape of every
-    kernel launch it makes (B1 by its words, levels and length, B2-B5 by
-    :func:`record_shapes`, B6 with a copy of its inputs).  Then hold every
+    kernel launch it makes (B1 by its words, levels and length, B2-B5 and
+    B8 by :func:`record_shapes`, B6 with a copy of its inputs).  Then hold every
     recorded shape against its plain version (B1 at each (words, levels)
     group's shortest and longest length, or with ``every_length`` at each
     length it was launched with), and print the launch counts of
@@ -2498,13 +2586,12 @@ def graft_child() -> int:
 # torch_bench.py's runs in the entry-points phase: (arguments, the log2 sizes
 # it must print, the kernels it must launch); bench.py's flags, with the
 # low-memory plan at the default size so that B4/B5 lie on the bench's path
-_B23 = ("bitonic_tail", "bitonic_span")
 BENCH_RUNS = [
-    ([], [25], _B23),
+    ([], [25], (EXECUTOR,)),
     (["--plan", "lowmem"], [25], ("merge_stage", "merge_tail")),
-    (["--sweep"], [25, 26, 27, 28], _B23),
-    (["--sweep-large", "--try-2e30"], [28, 29, 30], _B23),
-    (["--sweep-large", "--try-2e30", "--planes", "1"], [28, 29, 30], _B23),
+    (["--sweep"], [25, 26, 27, 28], (EXECUTOR,)),
+    (["--sweep-large", "--try-2e30"], [28, 29, 30], (EXECUTOR,)),
+    (["--sweep-large", "--try-2e30", "--planes", "1"], [28, 29, 30], (EXECUTOR,)),
 ]
 _CHECKED = re.compile(r"n=(\d+) words=\d+ plan=\S+: the last step is bit-equal")
 _PEAK = re.compile(r"peak device memory n=(\d+) words=\d+: (\d+) B")
@@ -2531,7 +2618,7 @@ def _entry_child(args, label, need, launches):
     print(f"{label}: exit 0 in {time.perf_counter() - t0:.1f} s; launches {counted}")
     for name in KERNEL_INFO:
         launches[name] += counted[name]
-    if any(counted[name] <= 0 for name in need):
+    if not_launched(counted, need):
         raise AssertionError(f"{label}: did not launch {need}: {counted}")
     return out, err
 
@@ -2687,6 +2774,7 @@ def main() -> int:
         from rdst_tpu_torch.ops import fused_merge as fm
         from rdst_tpu_torch.ops import fused_sort as fs
         from rdst_tpu_torch.ops import histogram as H
+        from rdst_tpu_torch.ops import radix_sort as rs
         from rdst_tpu_torch import parallel as par
         from rdst_tpu_torch.parallel import remote_dma as rd
     except ImportError as e:
@@ -2877,6 +2965,7 @@ def main() -> int:
                                 blk8, 3))
     del w, ws, we, wr, narrow, eight, packed
     piece_merge_checks(torch, P, fs, planes_of, check)
+    radix_checks(torch, P, rs, H, planes_of, check)
 
     # B4/B5 at the chunked path's merge shape: two u64 key words, the
     # stable tiebreak plane and a u32 rider; then narrow planes, a float32
@@ -2981,7 +3070,7 @@ def main() -> int:
                         lambda: rt.sort_key_value(k32, v32, stable=True))
     yf, _ = drive("f64 2^22 specials", f64.size,
                   lambda: rt.radix_sort_unstable(f64))
-    for name in ("multi_level_histogram", "bitonic_tail", "bitonic_span"):
+    for name in ("multi_level_histogram", "radix_pass"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the sort path")
     if not np.array_equal(y64, np.sort(x64)):
@@ -3023,10 +3112,12 @@ def main() -> int:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    (ok_, (ov,)), plans = drive(
-        "regions 2^30 int64 + int32, low-mem tuner, stable", n30,
-        lambda: rt.radix_sort_builder(keys, [vals]).with_low_mem_tuner()
-        .with_stable().sort(), merges=True)
+    seen_regions = {}
+    with record_shapes(fs, fm, seen_regions):
+        (ok_, (ov,)), plans = drive(
+            "regions 2^30 int64 + int32, low-mem tuner, stable", n30,
+            lambda: rt.radix_sort_builder(keys, [vals]).with_low_mem_tuner()
+            .with_stable().sort(), merges=True)
     peak = torch.cuda.max_memory_allocated()
     print(f"regions 2^30 peak device memory: {peak} B ({peak / GiB:.2f} GiB), "
           f"of which inputs {base} B ({base / GiB:.2f} GiB) held by the caller")
@@ -3040,6 +3131,11 @@ def main() -> int:
         raise AssertionError("regions 2^30 values differ from the stable order")
     print("regions 2^30: bit-exact vs torch.sort(stable=True) and its gather")
     del keys, vals, ok_, ov, ref_idx
+    torch.cuda.empty_cache()
+    # B8 at every shape the chunk sorts gave it
+    if "radix_pass" not in seen_regions:
+        raise AssertionError(f"the Regions chunk sorts ran {sorted(seen_regions)}")
+    check_recorded(fs, fm, {"radix_pass": seen_regions["radix_pass"]}, planes_of, check)
     torch.cuda.empty_cache()
 
     # the JAX package's acceptance shape: 20M u64, the gate forced open

@@ -1,6 +1,11 @@
-"""Reversal-free fused bitonic sort (kernels B2 and B3).
+"""The fused executor: LSD radix passes (B8) or the reversal-free bitonic
+network (kernels B2 and B3).
 
-Port of ``rdst_tpu/ops/pallas_sort.py``; the schedule is the JAX
+Rows whose key planes sum to at most 8 bytes, with at most one payload plane
+of at most 4 bytes, sort by one stable radix pass per key byte
+(``ops/radix_sort.py``, kernel B8, digit bases from B1): no phase 0, no pad,
+no network, no piece merge and no index plane.  Every wider row takes the
+network, a port of ``rdst_tpu/ops/pallas_sort.py``; its schedule is the JAX
 package's, so the module docstring there explains the design:
 
   phase 0   rows of ``config.row`` elements sort in one batched
@@ -46,6 +51,7 @@ import torch
 from rdst_tpu_torch import _build
 from rdst_tpu_torch import _planes as P
 from rdst_tpu_torch import config
+from rdst_tpu_torch.ops import radix_sort
 from rdst_tpu_torch.utils.trace import span, traced
 
 __all__ = [
@@ -65,6 +71,10 @@ MAX_PLANES = 8
 #: worth of 16-byte loads of u32 (32 x 16 B = 128 elements), so span pieces
 #: coalesce.  Takes the place of the TPU's 128-lane rows.
 GRAIN = 128
+#: The route the latest :func:`fused_sort` call took: ``"B8"`` (the radix
+#: passes) or ``"B2/B3"`` (the network).  The shuffle reads it to name the
+#: route of each per-shard sort.
+last_route: str | None = None
 _MAX_LEVELS = 32  # levels of one tail launch: its plan stays within _MAX_STEPS
 _SMEM_MAX = 227 * 1024  # bytes of shared memory one CTA may use on sm_90
 #: Elements per thread and plane of the B2/B3 kernels, by plane count
@@ -528,11 +538,15 @@ def fused_sort(
 ) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
     """Sort key word planes (most significant first) + payload planes.
 
-    ``row`` and ``block`` override the phase-0 row length and the small
-    block (tests use them to run every kernel shape at small n).  The call
-    is the ``rdst.fused_sort`` span; each piece's phase 0 and B2/B3 trips,
-    and the pieces' merge, are its ``phase0``, ``network`` and ``merge``
-    children."""
+    Rows that ``radix_sort.takes`` sort by the radix passes, in the order
+    of a stable sort whatever ``stable`` says; the others by the network.
+    ``row`` and ``block`` override the network's phase-0 row length and
+    small block (tests use them to run every kernel shape at small n).
+    :data:`last_route` names the route taken.  The call is the
+    ``rdst.fused_sort`` span; the radix passes are its ``radix`` child, and
+    each piece's phase 0 and B2/B3 trips, and the pieces' merge, are its
+    ``phase0``, ``network`` and ``merge`` children."""
+    global last_route
     words = list(words)
     payloads = list(payloads)
     for p in words:
@@ -546,6 +560,14 @@ def fused_sort(
     wp = [_norm_plane(p) for p in payloads]
     kplanes = [p for p, _ in wk]
     pplanes = [p for p, _ in wp]
+
+    if radix_sort.takes(kplanes, pplanes):
+        last_route = "B8"
+        with span("fused_sort.radix"):
+            out_k, out_p = radix_sort.radix_sort(kplanes, pplanes)
+        return ([r(p) for p, (_, r) in zip(out_k, wk)],
+                [r(p) for p, (_, r) in zip(out_p, wp)])
+    last_route = "B2/B3"
 
     T = _next_pow2(n)
     if T <= MAX_PAD_RATIO * n or T < (1 << 12):

@@ -68,6 +68,7 @@ import torch
 
 from rdst_tpu_torch import _planes as P
 from rdst_tpu_torch import config
+import rdst_tpu_torch.ops.fused_sort as executor
 from rdst_tpu_torch.ops.fused_sort import fused_sort, fused_sort_available
 from rdst_tpu_torch.ops.merge import merge_sorted
 from rdst_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh, make_mesh_2d
@@ -86,24 +87,26 @@ __all__ = [
 N_BUCKETS = 1 << 16
 _I64 = torch.int64
 
-#: Every per-shard sort by the route it took: ``(planes, rows, "B2/B3" or
-#: "lex_sort") -> calls``.  Never cleared here; a caller that prints the
-#: routes of one call clears it first.
+#: Every per-shard sort by the route it took: ``(planes, rows, "B8",
+#: "B2/B3" or "lex_sort") -> calls``, the executor's as ``fused_sort``
+#: names it.  Never cleared here; a caller that prints the routes of one
+#: call clears it first.
 SORT_ROUTES: collections.Counter = collections.Counter()
 
 
 def _local_sort(planes, n_keys, stable):
-    """Per-shard sort: the fused bitonic executor (B2/B3) when it takes the
-    shard's shape, else ``lex_sort``; the span ``rdst.shuffle.sort.fused``
-    or ``rdst.shuffle.sort.lex`` names the route."""
+    """Per-shard sort: the fused executor (its radix passes, B8, or its
+    bitonic network, B2/B3) when it takes the shard's shape, else
+    ``lex_sort``; the span ``rdst.shuffle.sort.fused`` or
+    ``rdst.shuffle.sort.lex`` names the route."""
     words, payloads = list(planes[:n_keys]), list(planes[n_keys:])
-    fused = fused_sort_available(words, payloads, stable=stable)
-    SORT_ROUTES[(len(planes), int(planes[0].shape[0]),
-                 "B2/B3" if fused else "lex_sort")] += 1
-    if fused:
+    rows = (len(planes), int(planes[0].shape[0]))
+    if fused_sort_available(words, payloads, stable=stable):
         with span("shuffle.sort.fused"):
             out_w, out_p = fused_sort(words, payloads, stable=stable)
+        SORT_ROUTES[rows + (executor.last_route,)] += 1
         return list(out_w) + list(out_p)
+    SORT_ROUTES[rows + ("lex_sort",)] += 1
     with span("shuffle.sort.lex"):
         return P.lex_sort(planes, n_keys, stable=stable)
 

@@ -25,6 +25,7 @@ The spans of one sort call (children indented under their parent):
                                   prints the pick
           rdst.sync.msb_fetch                 the MtOop plan's one readback
           rdst.fused_sort                     one fused executor call
+            rdst.fused_sort.radix             the radix passes (B1, B8)
             rdst.fused_sort.phase0            a piece's phase-0 rows
             rdst.fused_sort.network           a piece's B2/B3 trips
             rdst.fused_sort.merge             the pieces' merge
@@ -44,7 +45,7 @@ The table engine's spans (``table/tpch.py``, ``parallel/dtable.py``,
       rdst.table.encode           an operator's key and payload encoding
         rdst.keys.normalize       the key words
       rdst.shuffle                distributed_sort, partition_exchange
-        rdst.shuffle.sort.fused   a shard's sort on B2/B3 (-> rdst.fused_sort)
+        rdst.shuffle.sort.fused   a shard's sort on B8 or B2/B3 (-> rdst.fused_sort)
         rdst.shuffle.sort.lex     a shard's sort by lex_sort
         rdst.shuffle.plan         the window, histograms and assignment
         rdst.shuffle.exchange     the exchange (B6)

@@ -7,9 +7,11 @@ element:
   chained dispatcher step (``Sorter.run`` with the histogram taken once) for
   c1, c2 and c3, and ``engine.sort_words`` for the headline, as bench.py
   runs it;
-* ``fused raw`` -- the fused executor (``ops.fused_sort.fused_sort``: phase
-  0, kernels B2 and B3) driven directly on the operand planes, with no
-  normalization, histogram or dispatch;
+* ``fused raw`` -- the fused executor (``ops.fused_sort.fused_sort``: its
+  radix passes, B1 and B8, on rows of at most 8 key bytes and one payload,
+  which every shape here is; else phase 0, kernels B2 and B3) driven
+  directly on the operand planes, with no normalization, histogram or
+  dispatch;
 * ``torch raw`` -- the library's sort of the same function: the key planes
   packed into one int64 (most significant plane first, the top bit
   flipped, so that signed order is the key's order), ``torch.sort`` and one
@@ -18,9 +20,9 @@ element:
   and the index plane a stable fused sort carries, read once and written
   once over the HBM rate of ``benchmark/peaks.json`` (3.35 TB/s); HBM bounds it;
 * ``executor floor`` -- the trips through memory the fused plan makes (its
-  B2 and B3 launches, its phase-0 row sorts and the piece path's merges,
-  counted on one call), each reading and writing the planes it was given,
-  over the same rate.
+  B8 passes, or its B2 and B3 launches, its phase-0 row sorts and the piece
+  path's merges, counted on one call), each reading and writing the planes
+  it was given, over the same rate.
 
 Every timed step first XORs each plane with 0xB5A93E6B cut to its width
 (torch_bench_suite's rehash), so steps chain and no input arrives sorted.
@@ -47,6 +49,7 @@ from rdst_tpu_torch import _planes as P  # noqa: E402
 from rdst_tpu_torch import keys as rkeys  # noqa: E402
 from rdst_tpu_torch.engine import sort_words  # noqa: E402
 from rdst_tpu_torch.ops import fused_sort as fs  # noqa: E402
+from rdst_tpu_torch.ops import radix_sort as rs  # noqa: E402
 from rdst_tpu_torch.sorter import Sorter  # noqa: E402
 from scripts import torch_bench_suite as tbs  # noqa: E402
 from scripts.torch_timings import device_name  # noqa: E402
@@ -156,29 +159,33 @@ def bound_bytes(planes, stable) -> int:
 
 def executor_trips(planes, n_keys, stable):
     """The trips through memory of one fused sort of ``planes``: {kind:
-    (count, bytes read and written)}, kinds ``B2``, ``B3``, ``phase 0`` (the
+    (count, bytes read and written)}, kinds ``B8`` (a radix pass: every
+    plane read once and written once; ``radix_sort.radix_pass`` on the card,
+    ``radix_pass_plain`` on the CPU), ``B2``, ``B3``, ``phase 0`` (the
     ``lex_sort`` calls: the row sorts, and a piece too short for the
     network sorted whole) and ``merge`` (the piece path's merges, B7: both
     runs read once and the merged run written once)."""
     book = {}
-    real = {"B2": fs.tail_call, "B3": fs.span_call, "phase 0": fs.P.lex_sort,
-            "merge": fs.piece_merge}
+    sites = [(fs, "tail_call", "B2"), (fs, "span_call", "B3"),
+             (fs.P, "lex_sort", "phase 0"), (fs, "piece_merge", "merge"),
+             (rs, "radix_pass", "B8"), (rs, "radix_pass_plain", "B8")]
+    real = [getattr(mod, name) for mod, name, _ in sites]
 
-    def counted(kind):
-        def fn(ps, *args, **kw):
+    def counted(fn, kind):
+        def wrapped(ps, *args, **kw):
             runs = list(ps) + (list(args[0]) if kind == "merge" else [])
             c, b = book.get(kind, (0, 0))
             book[kind] = (c + 1, b + 2 * sum(p.numel() * p.dtype.itemsize for p in runs))
-            return real[kind](ps, *args, **kw)
-        return fn
+            return fn(ps, *args, **kw)
+        return wrapped
 
-    fs.tail_call, fs.span_call = counted("B2"), counted("B3")
-    fs.P.lex_sort, fs.piece_merge = counted("phase 0"), counted("merge")
+    for (mod, name, kind), fn in zip(sites, real):
+        setattr(mod, name, counted(fn, kind))
     try:
         fs.fused_sort(planes[:n_keys], planes[n_keys:], stable=stable)
     finally:
-        fs.tail_call, fs.span_call = real["B2"], real["B3"]
-        fs.P.lex_sort, fs.piece_merge = real["phase 0"], real["merge"]
+        for (mod, name, _), fn in zip(sites, real):
+            setattr(mod, name, fn)
     return book
 
 

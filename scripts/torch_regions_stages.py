@@ -8,7 +8,7 @@ first call and a warm one on the host clock (one synchronize at the end of
 each), then one more warm call inside a profiler region, split by the
 port's own spans (``scripts/torch_span_split.py``):
 
-  rdst.fused_sort under rdst.plan.Regions   the chunk sorts (B2/B3);
+  rdst.fused_sort under rdst.plan.Regions   the chunk sorts (B8, or B2/B3);
   rdst.plan.Regions, own                    the merge tree (``merge_many``:
                                             each merge's bitonic sequence,
                                             its B4 and B5 launches, which

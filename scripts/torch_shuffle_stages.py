@@ -9,7 +9,7 @@ the end of each), then one more warm call inside a profiler region, split
 by the port's own spans (``scripts/torch_span_split.py``):
 
   rdst.shuffle.sort.* [local]    each shard's sort before the exchange
-                                 (``fused``: B2/B3 under ``rdst.fused_sort``;
+                                 (``fused``: B8 or B2/B3 under ``rdst.fused_sort``;
                                  ``lex``: ``lex_sort``);
   rdst.shuffle.plan              windows, histograms, the assignment;
   rdst.shuffle.exchange          layout, pad fill, B6;

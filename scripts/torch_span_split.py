@@ -17,8 +17,9 @@ correlation id.  :func:`report` prints
 - the port's kernels by ID, with launches and device time: B1 ``hist``,
   B2 ``tail`` launched inside ``rdst.fused_sort``, B3 ``span``, B4
   ``merge_stage``, B5 ``tail`` launched outside it (B5 runs on B2's
-  kernel), B6 ``exchange``, B7 ``merge_partition`` and ``merge_tile``;
-  then torch's kernels that took the most, copies and sets.
+  kernel), B6 ``exchange``, B7 ``merge_partition`` and ``merge_tile``, B8
+  ``radix_pass``; then torch's kernels that took the most, copies and
+  sets.
 
 Times are in ms: host times on the host clock, device times the records'
 durations, both from the profiled call (the profiler slows the host side).
@@ -35,9 +36,10 @@ import time
 #: The port's kernels in ``csrc/*.cu`` (all in an anonymous namespace), by
 #: the stem of their name.
 _KERNEL = re.compile(
-    r"::(hist|tail|span|merge_stage|exchange|merge_partition|merge_tile)_kernel\b")
+    r"::(hist|tail|span|merge_stage|exchange|merge_partition|merge_tile|radix_pass)"
+    r"_kernel\b")
 _IDS = {"hist": "B1", "span": "B3", "merge_stage": "B4", "exchange": "B6",
-        "merge_partition": "B7", "merge_tile": "B7"}
+        "merge_partition": "B7", "merge_tile": "B7", "radix_pass": "B8"}
 _DEVICE = {"kernel": "kernel", "gpu_memcpy": "copy", "gpu_memset": "set"}
 _LAUNCH = ("cuda_runtime", "cuda_driver")
 SHUFFLE, EXCHANGE, SORT = "rdst.shuffle", "rdst.shuffle.exchange", "rdst.shuffle.sort."
@@ -66,7 +68,7 @@ class Record:
 
     @property
     def kernel(self) -> str | None:
-        """B1-B7 for a kernel of the port, else None."""
+        """B1-B8 for a kernel of the port, else None."""
         m = _KERNEL.search(self.name) if self.kind == "kernel" else None
         if m is None:
             return None

@@ -16,7 +16,7 @@ port's own spans (``scripts/torch_span_split.py``):
 
   rdst.table.encode              the key and payload encoding;
   rdst.shuffle.sort.* [local]    the shuffle's sorts before its exchange,
-                                 by route (``fused``: B2/B3; ``lex``);
+                                 by route (``fused``: B8 or B2/B3; ``lex``);
   rdst.shuffle.plan              windows, histograms, the assignment;
   rdst.shuffle.exchange          B6;
   rdst.shuffle.sort.* [finish]   the sorts after the exchange, by route;

@@ -23,6 +23,7 @@ from rdst_tpu_torch import _build
 from rdst_tpu_torch import _planes as P
 from rdst_tpu_torch import config
 from rdst_tpu_torch.ops import fused_sort as fs
+from rdst_tpu_torch.ops import radix_sort as rs
 from scripts import torch_acceptance as ta
 from scripts import torch_bench_suite as tbs
 from scripts import torch_floor_table as tf
@@ -96,7 +97,7 @@ def test_check_names_follow_the_reference():
 def test_main_on_the_cpu_passes_every_check(small, tmp_path):
     # the low-memory tuner picks Regions (B4/B5) above 1M rows only: the
     # card's run must launch them (chip_smoke.ACCEPTANCE_RUNS)
-    kernels = ("bitonic_tail", "bitonic_span")
+    kernels = ("radix_pass",)  # the checks' keys have at most 64 bits
     before = {k: _build.KERNELS[k].plain_calls for k in kernels}
     out_json = tmp_path / "accept.json"
     rc, lines = _main(["--device", "cpu", "--json", str(out_json)])
@@ -208,18 +209,29 @@ def test_bound_counts_each_plane_once_each_way(spec, want):
 
 
 def _fs_fns():
-    return (fs.tail_call, fs.span_call, fs.P.lex_sort, fs.piece_merge)
+    return (fs.tail_call, fs.span_call, fs.P.lex_sort, fs.piece_merge,
+            rs.radix_pass, rs.radix_pass_plain)
 
 
 def test_executor_trips_count_the_launches(monkeypatch):
     """The trips counted for the executor floor are the launches the fused
     sort makes (the wrappers' plain calls on the CPU), and the wrappers are
-    put back after."""
+    put back after: the floor table's shapes take the radix passes, one B8
+    trip a key byte; with a second payload plane the same rows take the
+    network."""
     monkeypatch.setattr(config, "fused_min_piece", 1 << 11)
     rng = np.random.default_rng(3)
-    for n in (1 << 13, 10_000):  # the power-of-two core, the piece path
+    for n in (1 << 13, 10_000):
         planes = _planes_of(tf.SHAPES[3], n, rng)
         real = _fs_fns()
+        before = _build.KERNELS["radix_pass"].plain_calls
+        trips = tf.executor_trips(planes, 2, True)
+        assert _fs_fns() == real
+        assert trips == {"B8": (8, 8 * 2 * n * 12)}
+        assert _build.KERNELS["radix_pass"].plain_calls - before == 8
+    for n in (1 << 13, 10_000):  # the power-of-two core, the piece path
+        planes = _planes_of(tf.SHAPES[3], n, rng)
+        planes.append(P.flip(planes[-1]))
         kinds = ("bitonic_tail", "bitonic_span", "piece_merge")
         before = {k: _build.KERNELS[k].plain_calls for k in kinds}
         trips = tf.executor_trips(planes, 2, True)
@@ -231,11 +243,11 @@ def test_executor_trips_count_the_launches(monkeypatch):
             _build.KERNELS["piece_merge"].plain_calls - before["piece_merge"])
         assert trips["phase 0"][0] >= 1
         assert ("merge" in trips) == (n == 10_000)
-        if n == 10_000:  # pieces of 8 and 2 x 1024 rows: one merge, 16 bytes a row
-            assert trips["merge"] == (1, 2 * 10_240 * 16)
-        # a stable sort's trips carry the index plane: 16 bytes a row
+        if n == 10_000:  # pieces of 8 and 2 x 1024 rows: one merge, 20 bytes a row
+            assert trips["merge"] == (1, 2 * 10_240 * 20)
+        # a stable sort's trips carry the index plane: 20 bytes a row
         b2_calls, b2_bytes = trips["B2"]
-        assert b2_bytes % (2 * 16) == 0 and b2_bytes >= b2_calls * 2 * 16 * 2048
+        assert b2_bytes % (2 * 20) == 0 and b2_bytes >= b2_calls * 2 * 20 * 2048
 
 
 def test_floor_table_prints_five_rows_on_the_cpu(monkeypatch):
@@ -249,10 +261,10 @@ def test_floor_table_prints_five_rows_on_the_cpu(monkeypatch):
     rows = [line.split(" | ") for line in lines[3:]]
     assert [r[0][2:] for r in rows] == [s[0] for s in tf.SHAPES]
     for r, shape in zip(rows, tf.SHAPES):
-        # 10,000 takes the piece path: pieces under fused_min_piece sort
-        # whole and merge on B7; 2^12 runs the network
-        trip = "merge 1" if shape[1] == "n10" else "B2"
-        assert all(float(v) > 0 for v in r[1:8]) and trip in r[-1]
+        # every shape has at most 8 key bytes and one payload: one B8 trip
+        # a key byte
+        key_bytes = sum(np.dtype(dt).itemsize for dt in shape[2][:len(shape[2]) - shape[3]])
+        assert all(float(v) > 0 for v in r[1:8]) and r[-1].rstrip(" |") == f"B8 {key_bytes}"
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32])

@@ -22,6 +22,7 @@ from rdst_tpu_torch import config
 from rdst_tpu_torch.ops import fused_merge as fm
 from rdst_tpu_torch.ops import fused_sort as fs
 from rdst_tpu_torch.ops import histogram as th
+from rdst_tpu_torch.ops import radix_sort as rs
 from rdst_tpu_torch import parallel as tpar
 from rdst_tpu_torch.parallel import remote_dma as rd
 
@@ -236,9 +237,11 @@ def test_bitonic_kernels_unaligned_planes(dev):
 
 
 @pytest.mark.parametrize("stable", [False, True])
-def test_fused_sort_default_blocks(dev, stable):
-    """fused_sort at the default blocks (2^14 at 3 planes with a payload or
-    the index plane) and a length that takes the piece path."""
+def test_fused_sort_default_blocks(dev, stable, monkeypatch):
+    """fused_sort's network at the default blocks (2^14 at 3 planes with a
+    payload or the index plane) and a length that takes the piece path;
+    the radix route, which these rows would take, is shut."""
+    monkeypatch.setattr(rs, "takes", lambda *a, **k: False)
     n = (1 << 21) + (1 << 19)
     rng = np.random.default_rng(31 + stable)
     keys = rng.integers(0, 2**32, size=(2, n), dtype=np.uint32)
@@ -268,6 +271,7 @@ def test_fused_sort_through_kernels(dev, monkeypatch, n, stable):
     keys[0] %= 1000
     pay = rng.integers(0, 2**32, size=n, dtype=np.uint32)
     before = fs.TAIL.launches, fs.SPAN.launches
+    monkeypatch.setattr(rs, "takes", lambda *a, **k: False)  # the network
     out_k, out_p = fs.fused_sort(
         [torch.from_numpy(k).to(dev) for k in keys],
         [torch.from_numpy(pay).to(dev)], stable=stable, row=512, block=2048)
@@ -490,6 +494,147 @@ def test_piece_merge_build_has_no_spills(dev):
     assert all(x == "0" and y == "0" for x, y in spills), res.stderr
 
 
+# -- B8: the radix passes ----------------------------------------------------
+
+_U8, _U16, _U32 = torch.uint8, torch.uint16, torch.uint32
+
+
+def _packed_order(keys):
+    """The stable order of rows by key planes of at most 64 bits, from
+    torch.sort of the key packed into one int64 (top bit flipped)."""
+    v = torch.zeros_like(P.widen(keys[0]))
+    for k in keys:
+        v = (v << (8 * k.dtype.itemsize)) | P.widen(k)
+    if sum(k.dtype.itemsize for k in keys) == 8:
+        v = v ^ (-(1 << 63))
+    return torch.sort(v, stable=True).indices
+
+
+def _b8(planes, n_keys, byte, scratch):
+    """One B8 launch into fresh planes, on the level's counts from B1."""
+    counts = th.histogram_cuda(rs.hist_words(planes[:n_keys]), 1, byte)
+    return rs.radix_pass(planes, [torch.empty_like(p) for p in planes], n_keys, byte,
+                         counts, scratch)
+
+
+@pytest.mark.parametrize("n,keys,pay", [
+    (50_000_000, (_U32, _U32), None),   # the tensor cell's shape
+    (1 << 21, (_U32, _U32), None),
+    ((1 << 21) + 1, (_U32, _U32), _U32),
+    ((1 << 21) + 1, (_U8, _U16, _U32), _U16),
+    (1 << 20, (_U16,), _U8),
+    (4097, (_U32,), None),
+    (1, (_U32, _U32), _U32),
+])
+def test_radix_passes_equal_plain_and_sort(dev, n, keys, pay):
+    """Each B8 pass bit-equal to its plain version (on the plain version's
+    own input, so every pass sees partly sorted rows), the whole sort equal
+    to torch.sort's stable order, and the caller's planes unchanged."""
+    ks = _planes(dev, n, keys, n)
+    ps = _planes(dev, n, (pay,), n + 1) if pay else []
+    kept = [t.clone() for t in ks + ps]
+    planes = ks + ps
+    scratch = rs.pass_scratch(n, dev).fill_(-1)  # one buffer, any contents
+    for b in range(sum(k.itemsize for k in keys)):
+        _same(_b8(planes, len(ks), b, scratch), rs.radix_pass_plain(planes, len(ks), b))
+        planes = rs.radix_pass_plain(planes, len(ks), b)
+    del planes
+    before = rs.RADIX_PASS.launches
+    ok, op = rs.radix_sort(ks, ps)
+    assert rs.RADIX_PASS.launches - before == sum(k.itemsize for k in keys)
+    order = _packed_order(ks)
+    _same(ok + op, [P.take(t, order) for t in ks + ps])
+    _same(ks + ps, kept)
+
+
+def test_radix_ties_across_tiles(dev):
+    """Three key values over 2^22 rows: every digit's run crosses many
+    tiles, and the look-back carries the counts; stable payload exact."""
+    ks = _planes(dev, 1 << 22, (_U32, _U32), 5, high=3)
+    ps = [torch.arange(1 << 22, dtype=torch.int32, device=dev).view(_U32)]
+    ok, op = rs.radix_sort(ks, ps)
+    order = _packed_order(ks)
+    _same(ok + op, [P.take(t, order) for t in ks + ps])
+
+
+def test_radix_build_has_no_spills(dev):
+    """Every radix_pass.cu instance (digit plane of 1, 2 and 4 bytes)
+    builds without spills (nvcc -Xptxas -v)."""
+    import re
+    import subprocess
+    import tempfile
+
+    from rdst_tpu_torch import _build
+
+    src = Path(_build.__file__).resolve().parent / "csrc" / "radix_pass.cu"
+    flags = [f for f in _build._FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run([_build._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+                              str(Path(tmp) / "r.o"), str(src)],
+                             capture_output=True, text=True, check=True)
+    regs = re.findall(r"Used (\d+) registers", res.stderr)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", res.stderr)
+    print(f"radix_pass.cu: {len(regs)} instances, registers {sorted(map(int, regs))}")
+    assert len(regs) == 3 and len(spills) >= len(regs)
+    assert all(x == "0" and y == "0" for x, y in spills), res.stderr
+
+
+def test_radix_wrapper_refuses_bad_planes(dev):
+    n = 1 << 12
+    p = _planes(dev, n, (_U32, _U32, _U32), 7)
+    counts = th.histogram_cuda(p[:2], 1, 0)
+    scratch = rs.pass_scratch(n, dev)
+
+    def launch(src, n_keys, dst=None, sc=scratch):
+        dst = [torch.empty_like(t) for t in src] if dst is None else dst
+        return rs.radix_pass(src, dst, n_keys, 0, counts, sc)
+
+    before = rs.RADIX_PASS.launches
+    with pytest.raises(ValueError):  # CPU planes
+        launch([t.cpu() for t in p[:2]], 2)
+    with pytest.raises(ValueError):  # lengths differ
+        launch([p[0], p[1][:100]], 2)
+    with pytest.raises(ValueError):  # two payload planes
+        launch(p, 1)
+    with pytest.raises(ValueError):  # an output plane on the CPU
+        launch(p[:2], 2, dst=[torch.empty_like(p[0]), torch.empty(n, dtype=_U32)])
+    with pytest.raises(ValueError):  # scratch too short for the length
+        launch(p[:2], 2, sc=scratch[:-1])
+    assert rs.RADIX_PASS.launches == before
+
+
+def test_tensor_call_takes_the_radix_passes(dev):
+    """A tensor-cell-shaped call (u64 keys on the card, 2^25 here) under the
+    profiler: one ``rdst.fused_sort.radix`` span, B8 launches and no B2/B3
+    launch; bit-equal to torch.sort."""
+    from torch.autograd import DeviceType
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(27)
+    x = torch.empty(1 << 25, dtype=torch.int64, device=dev).random_(generator=g)
+    x ^= torch.randint(0, 2, x.shape, dtype=torch.int64, device=dev, generator=g) << 63
+    keys = x.view(torch.uint64)
+    rt.radix_sort_unstable(keys)
+    torch.cuda.synchronize()
+    before = fs.TAIL.launches, fs.SPAN.launches, rs.RADIX_PASS.launches
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = rt.radix_sort_unstable(keys)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    assert names.count("rdst.fused_sort.radix") == 1
+    assert not any(nm.startswith(("rdst.fused_sort.phase0", "rdst.fused_sort.network"))
+                   for nm in names)
+    assert (fs.TAIL.launches, fs.SPAN.launches) == before[:2]
+    assert rs.RADIX_PASS.launches - before[2] == 8
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    assert any("radix_pass_kernel" in k for k in kernels)
+    assert not any("tail_kernel" in k or "span_kernel" in k for k in kernels)
+    flip = -(1 << 63)
+    assert torch.equal(out.view(torch.int64), torch.sort(x ^ flip).values ^ flip)
+
+
 def _sorted_runs(dev, n_runs, m, seed):
     rng = np.random.default_rng(seed)
     keys = np.sort(rng.integers(0, 5000, size=(n_runs, m)).astype(np.uint32), 1)
@@ -519,7 +664,8 @@ def test_fused_merge_and_merge_level_on_the_card(dev):
 
 def test_chunked_sort_on_the_card(dev, monkeypatch):
     """A Regions pick above the (lowered) memory gate runs chunked_sort:
-    B2/B3 chunk sorts, then the B4/B5 merge tree."""
+    chunk sorts on the executor's radix passes (B8: an int64 key and one
+    int32 payload), then the B4/B5 merge tree."""
     monkeypatch.setattr(config, "low_mem_threshold_bytes", 1)
     monkeypatch.setattr(config, "fused_min_elems", 1 << 14)
     rng = np.random.default_rng(9)
@@ -527,11 +673,11 @@ def test_chunked_sort_on_the_card(dev, monkeypatch):
     k = rng.integers(0, 2**63, size=n, dtype=np.int64)
     k[::3] = 42
     v = np.arange(n, dtype=np.int32)
-    before = fm.MERGE_STAGE.launches, fm.MERGE_TAIL.launches, fs.TAIL.launches
+    before = fm.MERGE_STAGE.launches, fm.MERGE_TAIL.launches, rs.RADIX_PASS.launches
     gk, (gv,) = rt.radix_sort_builder(
         torch.from_numpy(k).to(dev), [torch.from_numpy(v).to(dev)]
     ).with_algorithm(rt.Algorithm.REGIONS).with_stable().sort()
-    after = fm.MERGE_STAGE.launches, fm.MERGE_TAIL.launches, fs.TAIL.launches
+    after = fm.MERGE_STAGE.launches, fm.MERGE_TAIL.launches, rs.RADIX_PASS.launches
     assert all(a > b for a, b in zip(after, before))
     order = np.argsort(k, kind="stable")
     np.testing.assert_array_equal(gk.cpu().numpy(), k[order])
@@ -696,17 +842,17 @@ def _u64_on(dev, n, seed, high=None):
 
 @pytest.mark.parametrize("overlap", [False, True])
 def test_distributed_sort_on_the_card(dev, monkeypatch, overlap):
-    """distributed_sort on make_mesh(4) on the card: through B2/B3 (fused
-    local sorts) and B6 (every exchange), bit-equal to numpy and to the
-    same call on a CPU mesh."""
+    """distributed_sort on make_mesh(4) on the card: through B8 (the fused
+    local sorts of a u64 key and one payload) and B6 (every exchange),
+    bit-equal to numpy and to the same call on a CPU mesh."""
     monkeypatch.setattr(config, "fused_min_elems", 1 << 14)
     n = 4 * (1 << 15)
     x, words = _u64_on(dev, n, 21, high=1 << 40)
     pay = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
-    before = rd.EXCHANGE.launches, fs.TAIL.launches
+    before = rd.EXCHANGE.launches, rs.RADIX_PASS.launches
     w, p, c = tpar.distributed_sort(words, [pay], mesh=tpar.make_mesh(4),
                                     stable=True, overlap_exchange=overlap)
-    assert rd.EXCHANGE.launches > before[0] and fs.TAIL.launches > before[1]
+    assert rd.EXCHANGE.launches > before[0] and rs.RADIX_PASS.launches > before[1]
     assert w[0].device.type == "cuda" and c.shape == (4,)
     hi, lo, got_p = tpar.gather_valid(w + p, c)
     order = np.argsort(x, kind="stable")
@@ -951,21 +1097,23 @@ def test_every_host_sync_of_the_sort_call_is_named(dev):
 @pytest.mark.parametrize("n", [1 << 10, 1 << 22])
 def test_jit_api_sort_has_no_host_sync(dev, n):
     """``jit_api.sort`` and ``argsort`` on CUDA tensors under sync debug
-    mode "error": ``lex_sort`` at 2^10, the fused executor (B2/B3) at
-    2^22; bit-equal to torch.sort."""
+    mode "error": ``lex_sort`` at 2^10, the fused executor at 2^22 (the
+    sort's u64 key and one payload on B8, the stable argsort's 12-byte
+    composite key on B2/B3); bit-equal to torch.sort."""
     from rdst_tpu_torch import jit_api
 
     g = torch.Generator(device=dev)
     g.manual_seed(n)
     x = torch.empty(n, dtype=torch.int64, device=dev).random_(generator=g)
     v = torch.arange(n, dtype=torch.int32, device=dev)
-    before = fs.TAIL.launches, fs.SPAN.launches
+    before = fs.TAIL.launches, fs.SPAN.launches, rs.RADIX_PASS.launches
     torch.cuda.synchronize()
     with _NoSync():
         ks, (vs,) = jit_api.sort(x.view(torch.uint64), payloads=[v], stable=True)
         idx = jit_api.argsort(x)
     torch.cuda.synchronize()
-    fused = fs.TAIL.launches > before[0] and fs.SPAN.launches > before[1]
+    fused = (fs.TAIL.launches > before[0] and fs.SPAN.launches > before[1]
+             and rs.RADIX_PASS.launches > before[2])
     assert fused == (n >= config.fused_min_elems)
     ref, order = torch.sort(x ^ (-(1 << 63)), stable=True)
     assert torch.equal(ks.view(torch.int64), ref ^ (-(1 << 63)))

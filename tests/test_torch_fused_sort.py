@@ -1,4 +1,5 @@
-"""The fused bitonic executor of the port (ops/fused_sort.py, kernels B2/B3).
+"""The fused bitonic executor of the port (ops/fused_sort.py, kernels B2/B3),
+with the radix route shut (every case here takes the network).
 
 Two kinds of check, both exact (integer bit patterns throughout):
 
@@ -25,6 +26,14 @@ torch.set_num_threads(1)
 @pytest.fixture(autouse=True)
 def _force_interpret(monkeypatch):
     monkeypatch.setenv("RDST_TPU_FORCE_INTERPRET", "1")
+
+
+@pytest.fixture(autouse=True)
+def _network_route(monkeypatch):
+    """These cases hold the network: the radix route, which rows of at most
+    64 key bits and one payload plane take (tests/test_torch_radix_sort.py),
+    is shut."""
+    monkeypatch.setattr(fs.radix_sort, "takes", lambda *a, **k: False)
 
 
 def _t(arrays):

@@ -19,6 +19,7 @@ from rdst_tpu import jit_api as jj
 from rdst_tpu_torch import config
 from rdst_tpu_torch import jit_api
 from rdst_tpu_torch.ops import fused_sort as fs
+from rdst_tpu_torch.ops import radix_sort as rs
 
 torch.set_num_threads(1)
 
@@ -114,25 +115,26 @@ def test_grad_through_payload(dtype, stable):
 
 def test_fused_executor_at_small_n(monkeypatch):
     """With ``fused_min_elems`` lowered, the sort takes the fused executor
-    (B2/B3's plain versions on CPU tensors) and still matches the JAX
-    package, gradient included."""
+    (its radix passes, B8's plain version on CPU tensors, for a 64-bit key
+    and one payload; B2/B3's for the stable argsort's 12-byte key) and still
+    matches the JAX package, gradient included."""
     monkeypatch.setattr(config, "fused_min_elems", 2048)
     monkeypatch.setattr(config, "fused_min_piece", 1024)
     monkeypatch.setattr(config, "bitonic_smem_bytes", 18432)
     rng = np.random.default_rng(6)
     x = rng.integers(0, 2**64, 5_000, dtype=np.uint64)
     v = rng.standard_normal(5_000).astype(np.float32)
-    before = fs.TAIL.plain_calls, fs.SPAN.plain_calls
+    before = rs.RADIX_PASS.plain_calls
     tv = torch.from_numpy(v).requires_grad_()
     ks, (vs,) = jit_api.sort(torch.from_numpy(x), payloads=[tv], stable=True)
-    assert fs.TAIL.plain_calls > before[0] and fs.SPAN.plain_calls > before[1]
+    assert rs.RADIX_PASS.plain_calls > before
     wk, (wv,) = jj.sort(jnp.asarray(x), payloads=[jnp.asarray(v)], stable=True)
     np.testing.assert_array_equal(ks.numpy(), np.asarray(wk))
     np.testing.assert_array_equal(_bits(vs), _bits(wv))
     (g,) = torch.autograd.grad(vs.sum(), [tv])
     np.testing.assert_array_equal(g.numpy(), np.ones(5_000, np.float32))
     before = fs.TAIL.plain_calls
-    idx = jit_api.argsort(torch.from_numpy(x))
+    idx = jit_api.argsort(torch.from_numpy(x))  # (key, index): 12 key bytes, B2
     assert fs.TAIL.plain_calls > before
     np.testing.assert_array_equal(idx.numpy(), np.argsort(x, kind="stable"))
 

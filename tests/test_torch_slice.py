@@ -19,7 +19,7 @@ import rdst_tpu
 import rdst_tpu.engine
 import rdst_tpu_torch as rt
 from rdst_tpu_torch import config, engine
-from rdst_tpu_torch.ops import fused_sort as fs
+from rdst_tpu_torch.ops import radix_sort as rs
 from rdst_tpu_torch.ops import histogram as th
 from rdst_tpu_torch.tuner import Algorithm
 
@@ -57,10 +57,10 @@ def _keys(dt, rng, n=N):
 def test_radix_sort_unstable_matches_jax(dt):
     rng = np.random.default_rng(len(dt))
     x = _keys(dt, rng)
-    counts = (th.HISTOGRAM.plain_calls, fs.TAIL.plain_calls)
+    counts = (th.HISTOGRAM.plain_calls, rs.RADIX_PASS.plain_calls)
     got = rt.radix_sort_unstable(x, device="cpu")
     assert th.HISTOGRAM.plain_calls > counts[0]
-    assert fs.TAIL.plain_calls > counts[1]
+    assert rs.RADIX_PASS.plain_calls > counts[1]  # keys of at most 64 bits: B8
     want = rdst_tpu.radix_sort_unstable(x)
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(_bits(got), _bits(want))
@@ -71,9 +71,9 @@ def test_sort_key_value_stable_matches_jax(n):
     rng = np.random.default_rng(n)
     k = rng.integers(0, 300, size=n).astype(np.uint32)  # heavy ties
     v = rng.integers(0, 2**32, size=n, dtype=np.uint32)
-    before = fs.SPAN.plain_calls
+    before = rs.RADIX_PASS.plain_calls
     gk, gv = rt.sort_key_value(k, v, stable=True, device="cpu")
-    assert fs.SPAN.plain_calls > before
+    assert rs.RADIX_PASS.plain_calls > before  # a u32 key and one payload: B8
     wk, wv = rdst_tpu.sort_key_value(k, v, stable=True)
     np.testing.assert_array_equal(gk, np.asarray(wk))
     np.testing.assert_array_equal(gv, np.asarray(wv))

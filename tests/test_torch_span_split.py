@@ -1,6 +1,6 @@
 """``scripts/torch_span_split.py``, the stage scripts' reading of a
 profiler trace: spans nested by thread, device records given to the spans
-open at their launch by correlation id, the port's kernels named B1-B7 (B5
+open at their launch by correlation id, the port's kernels named B1-B8 (B5
 by its launch outside ``rdst.fused_sort``), and the shuffle's sorts named by
 their side of its exchange."""
 import json
@@ -76,6 +76,15 @@ def test_port_kernels_are_named_and_b5_is_b2s_kernel_outside_the_executor(tmp_pa
     assert [r.kernel for r in t.records] == ["B2", "B6", "B5", "B7", None, None]
     assert [r.kind for r in t.records][-1] == "copy" and t.records[-1].path == ()
     assert t.busy_us() == 4 + 6 + 2 + 3 + 1 + 2
+
+
+def test_radix_pass_kernel_is_b8():
+    """B8's instances (one a digit plane width) by their kernel name."""
+    for w in (1, 2, 4):
+        rec = tss.Record(f"void (anonymous namespace)::radix_pass_kernel<{w}>(PassPlanes, "
+                         "int, int, int, long long const*, unsigned int*, unsigned int*)",
+                         "kernel", 0, 1, ("rdst.fused_sort", "rdst.fused_sort.radix"))
+        assert rec.kernel == "B8"
 
 
 def test_a_cpu_sort_call_gives_its_span_tree(tmp_path):

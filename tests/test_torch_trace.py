@@ -15,6 +15,7 @@ import rdst_tpu as jrt
 import rdst_tpu.utils as jutils
 import rdst_tpu_torch as rt
 from rdst_tpu_torch import config, keys, utils
+from rdst_tpu_torch.ops import radix_sort
 from rdst_tpu_torch.sorter import Sorter
 from rdst_tpu_torch.tuner import Algorithm
 from rdst_tpu_torch.utils import trace
@@ -101,6 +102,7 @@ PARENTS = {
     "rdst.tuner.pick": "rdst.sorter.run",
     "PLAN": "rdst.sorter.run",
     "rdst.fused_sort": "PLAN",
+    "rdst.fused_sort.radix": "rdst.fused_sort",
     "rdst.fused_sort.phase0": "rdst.fused_sort",
     "rdst.fused_sort.network": "rdst.fused_sort",
     "rdst.fused_sort.merge": "rdst.fused_sort",
@@ -108,6 +110,11 @@ PARENTS = {
     "rdst.sync.to_numpy": "rdst.keys.denormalize",
 }
 NUMPY_ONLY = {"rdst.copy.h2d", "rdst.sync.to_numpy"}
+#: The executor's children by route: the radix passes for keys of at most
+#: 64 bits, the network (with the piece merge at 5000 rows) for wider ones.
+RADIX_ONLY = {"rdst.fused_sort.radix"}
+NETWORK_ONLY = {"rdst.fused_sort.phase0", "rdst.fused_sort.network",
+                "rdst.fused_sort.merge"}
 
 
 @pytest.fixture
@@ -147,12 +154,19 @@ def _as_numpy(out):
     return out if isinstance(out, np.ndarray) else out.numpy()
 
 
-@pytest.mark.parametrize("kind", ["tensor", "numpy"])
-def test_sort_call_spans_nest_as_documented(kind, rng, executor):
-    """5000 keys: 5120 padded, pieces of 4096 and 1024, so the executor's
-    merge runs too; the plan span is named by the pick work_profiles
-    prints."""
+@pytest.mark.parametrize("kind,route", [
+    pytest.param("tensor", "radix", id="tensor"),
+    pytest.param("numpy", "radix", id="numpy"),
+    pytest.param("tensor", "network", id="tensor-network"),
+    pytest.param("numpy", "network", id="numpy-network"),
+])
+def test_sort_call_spans_nest_as_documented(kind, route, rng, executor, monkeypatch):
+    """5000 u64 keys take the radix passes; with the radix route shut, the
+    network: 5120 padded, pieces of 4096 and 1024, so the executor's merge
+    runs too; the plan span is named by the pick work_profiles prints."""
     x = _u64(rng, 5000)
+    if route == "network":
+        monkeypatch.setattr(radix_sort, "takes", lambda *a, **k: False)
     buf = io.StringIO()
     with utils.work_profiles(True), contextlib.redirect_stdout(buf):
         out, spans = _spans(_call(x, kind))
@@ -160,7 +174,9 @@ def test_sort_call_spans_nest_as_documented(kind, rng, executor):
     (pick,) = [ln.split("PLAN: ")[1].split(" len=")[0]
                for ln in buf.getvalue().splitlines() if "PLAN:" in ln]
     plan = "rdst.plan." + pick
-    want = {k for k in PARENTS if kind == "numpy" or k not in NUMPY_ONLY}
+    other = NETWORK_ONLY if route == "radix" else RADIX_ONLY
+    want = {k for k in PARENTS
+            if (kind == "numpy" or k not in NUMPY_ONLY) and k not in other}
     named = {"PLAN" if n == plan else n for n, _ in spans}
     assert named == want
     for name, parent in spans:
